@@ -1,0 +1,259 @@
+"""Detector model abstraction — the port's ``DetectionModel`` family.
+
+Counterpart of facedet_tpu/engine/detector.py. The compute contract is
+tensor-first: ``tile_forward(tiles) -> Detections`` runs a whole SAHI tile
+batch (NHWC in [0, 1], the JAX layout) through the detector and the
+per-tile decode; ``tile_forward_nchw`` is the same on NCHW tiles, which the
+sliced pipeline gathers directly. The Python-object API
+(``perform_inference``, ``convert_original_predictions``,
+``object_prediction_list``) is the compatibility edge.
+
+Device: ``device=None`` means ``"cuda"``. Without a CUDA device the
+constructor raises unless the caller asked for ``device="cpu"``; nothing
+falls back to the CPU on its own.
+
+Weights: ``model_path`` is a ``.npz`` of flat flax variables (the JAX
+package's checkpoints, carried over by models/from_jax.py) or ``None`` for a
+random init from a seeded ``torch.Generator``.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from facedet_tpu_torch.core.detections import Detections
+from facedet_tpu_torch.core.letterbox import (
+    apply_letterbox,
+    compute_letterbox,
+    unletterbox_boxes,
+    unletterbox_kpts,
+)
+from facedet_tpu_torch.engine.prediction import detections_to_object_predictions
+
+DEFAULT_CATEGORY_MAPPING = {"0": "face"}
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` -> ``cuda``; a CUDA device must exist."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the port on the CPU"
+        )
+    return dev
+
+
+class DetectionModel:
+    """Base detector. Subclasses implement ``load_model`` and
+    ``tile_forward_nchw``."""
+
+    def __init__(
+        self,
+        model_path: Optional[str] = None,
+        device=None,
+        confidence_threshold: float = 0.3,
+        category_mapping: Optional[dict] = None,
+        image_size: Optional[int] = None,
+        load_at_init: bool = True,
+        max_detections_per_tile: int = 300,
+        **kwargs: Any,
+    ):
+        self.model_path = model_path
+        self.device = resolve_device(device)
+        self.confidence_threshold = confidence_threshold
+        self.category_mapping = category_mapping or dict(DEFAULT_CATEGORY_MAPPING)
+        self.image_size = image_size
+        self.max_detections_per_tile = max_detections_per_tile
+        self.model: Any = None
+        self._original_predictions: Optional[Detections] = None
+        self._object_prediction_list: list = []
+        self.durations_in_seconds: dict[str, float] = {}
+        if load_at_init:
+            self.load_model()
+
+    @property
+    def num_keypoints(self) -> int:
+        return 5
+
+    def load_model(self) -> None:
+        raise NotImplementedError
+
+    def unload_model(self) -> None:
+        self.model = None
+
+    def tile_forward_nchw(self, tiles: torch.Tensor, conf_threshold: float) -> Detections:
+        """tiles [T,3,S,S] float in [0,1] on ``self.device`` -> per-tile
+        Detections [T, k]."""
+        raise NotImplementedError
+
+    def tile_forward(self, tiles: torch.Tensor, conf_threshold: float) -> Detections:
+        """tiles [T,S,S,3] float in [0,1] -> per-tile Detections [T, k]."""
+        return self.tile_forward_nchw(tiles.permute(0, 3, 1, 2), conf_threshold)
+
+    def forward_tiles(self, tiles, conf_threshold: float | None = None) -> Detections:
+        """``tile_forward`` at the model's confidence threshold, with the
+        tiles moved to the model's device."""
+        conf = self.confidence_threshold if conf_threshold is None else conf_threshold
+        return self.tile_forward(torch.as_tensor(tiles).to(self.device), float(conf))
+
+    # --- host-side compatibility edge ---------------------------------
+    def perform_inference(self, image: np.ndarray) -> None:
+        """Single image/tile inference: letterbox to ``image_size``, forward,
+        map back; stores the raw predictions on self."""
+        t0 = time.perf_counter()
+        img = np.asarray(image)
+        if img.dtype == np.uint8:
+            img = img.astype(np.float32) / 255.0
+        size = self.image_size or max(img.shape[:2])
+        spec = compute_letterbox(img.shape[0], img.shape[1], int(size))
+        tile = apply_letterbox(torch.from_numpy(img).to(self.device), spec)
+        det = self.forward_tiles(tile[None]).map(lambda x: x[0])
+        self._original_predictions = Detections(
+            boxes=unletterbox_boxes(det.boxes, spec),
+            scores=det.scores,
+            classes=det.classes,
+            kpts=unletterbox_kpts(det.kpts, spec),
+            valid=det.valid,
+        )
+        self.durations_in_seconds["prediction"] = time.perf_counter() - t0
+
+    @property
+    def original_predictions(self) -> Optional[Detections]:
+        return self._original_predictions
+
+    def convert_original_predictions(
+        self,
+        shift_amount: tuple[int, int] = (0, 0),
+        full_shape: Optional[tuple[int, int]] = None,
+    ) -> None:
+        """Raw tensor predictions -> shifted/clipped ObjectPrediction list."""
+        det = self._original_predictions
+        if det is None:
+            raise RuntimeError("perform_inference must be called first")
+        det = det.to("cpu")
+        sx, sy = float(shift_amount[0]), float(shift_amount[1])
+        boxes = det.boxes.numpy() + np.array([sx, sy, sx, sy], np.float32)
+        kpts = det.kpts.numpy().copy()
+        kpts[..., 0] += sx
+        kpts[..., 1] += sy
+        valid = det.valid.numpy() & (det.scores.numpy() >= self.confidence_threshold)
+        if full_shape is not None:
+            h, w = full_shape
+            boxes[:, [0, 2]] = boxes[:, [0, 2]].clip(0, w)
+            boxes[:, [1, 3]] = boxes[:, [1, 3]].clip(0, h)
+            valid &= (boxes[:, 2] > boxes[:, 0]) & (boxes[:, 3] > boxes[:, 1])
+        shifted = Detections(
+            boxes=torch.from_numpy(boxes),
+            scores=det.scores,
+            classes=det.classes,
+            kpts=torch.from_numpy(kpts),
+            valid=torch.from_numpy(valid),
+        )
+        self._object_prediction_list = detections_to_object_predictions(
+            shifted, self.category_mapping, full_shape
+        )
+
+    @property
+    def object_prediction_list(self) -> list:
+        return self._object_prediction_list
+
+    @property
+    def object_prediction_list_per_image(self) -> list[list]:
+        return [self._object_prediction_list]
+
+
+@contextlib.contextmanager
+def _exact_float32(on: bool):
+    """Turn TF32 off for cuBLAS and cuDNN while ``on`` (the float32 fidelity
+    mode): cuDNN runs float32 convs in TF32 by default, which keeps about
+    three decimal digits. The previous settings are restored on exit."""
+    if not on:
+        yield
+        return
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _random_init(model: torch.nn.Module, seed: int) -> None:
+    """Random weights from a seeded generator: conv kernels N(0, 1/fan_in),
+    conv biases 0; BatchNorm keeps torch's defaults, which are flax's
+    (scale 1, bias 0, mean 0, var 1)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                fan_in = m.weight[0].numel()
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * fan_in**-0.5)
+                if m.bias is not None:
+                    m.bias.zero_()
+
+
+class YoloV11PoseDetectionModel(DetectionModel):
+    """YOLOv11-pose detector, with keypoints carried through the merge as
+    tensor columns.
+
+    ``dtype="bfloat16"`` is the serving dtype and ``"float32"`` the fidelity
+    mode; ``bn_dtype`` follows ``dtype`` unless given. ``s2d_early`` is
+    accepted for signature parity and ignored: the JAX package's
+    space-to-depth rewrite computes the same function."""
+
+    def __init__(
+        self,
+        *args,
+        scale: str = "s",
+        dtype: str = "bfloat16",
+        bn_dtype: str | None = None,
+        s2d_early: bool = True,
+        seed: int = 0,
+        **kwargs,
+    ):
+        self.scale = scale
+        self.dtype = dtype
+        self.bn_dtype = bn_dtype or ("bfloat16" if dtype == "bfloat16" else "float32")
+        self.s2d_early = s2d_early
+        self.seed = seed
+        super().__init__(*args, **kwargs)
+
+    def load_model(self) -> None:
+        from facedet_tpu_torch.models.from_jax import load_jax_variables, load_params_npz
+        from facedet_tpu_torch.models.yolov11 import YoloConfig, YoloV11
+
+        self.cfg = YoloConfig(
+            scale=self.scale,
+            num_classes=len(self.category_mapping),
+            with_pose=True,
+            dtype=self.dtype,
+            bn_dtype=self.bn_dtype,
+        )
+        model = YoloV11(self.cfg)
+        if self.model_path is None:
+            _random_init(model, self.seed)
+        elif str(self.model_path).endswith(".npz"):
+            load_jax_variables(model, load_params_npz(self.model_path))
+        elif str(self.model_path).endswith(".pt"):
+            raise NotImplementedError(".pt checkpoint conversion is not yet ported")
+        else:
+            raise ValueError(f"unsupported checkpoint format: {self.model_path}")
+        self.model = model.set_dtypes().to(self.device).eval()
+
+    def tile_forward_nchw(self, tiles: torch.Tensor, conf_threshold: float) -> Detections:
+        from facedet_tpu_torch.models.yolo_decode import decode_predictions, decode_to_detections
+
+        with torch.inference_mode(), _exact_float32(self.dtype == "float32"):
+            preds = decode_predictions(self.model.forward_nchw(tiles))
+            return decode_to_detections(
+                preds,
+                conf_threshold=conf_threshold,
+                max_detections=self.max_detections_per_tile,
+                nms_iou=0.7,
+                class_agnostic=True,
+            )

@@ -1,0 +1,1 @@
+"""CUDA kernels of the port, each with its plain PyTorch version."""

@@ -22,3 +22,9 @@ assert jax.devices()[0].platform == "cpu", jax.devices()
 assert len(jax.devices()) == 8, jax.devices()
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where torch sees none"
+    )
