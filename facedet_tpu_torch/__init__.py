@@ -3,11 +3,18 @@ YOLOv11-pose on an NVIDIA H100.
 
 The package imports torch, numpy and PIL, never jax or facedet_tpu. Its
 entry points run on the CUDA device unless the caller passes
-``device="cpu"``.
+``device="cpu"``. The serving path is ``predict_stream_batched`` over
+``input_format="dct420s"`` (engine/predict.py).
 """
 from facedet_tpu_torch.core.detections import Detections
 from facedet_tpu_torch.engine.detector import DetectionModel, YoloV11PoseDetectionModel
-from facedet_tpu_torch.engine.predict import get_prediction, get_sliced_prediction
+from facedet_tpu_torch.engine.predict import (
+    get_prediction,
+    get_sliced_prediction,
+    get_sliced_prediction_batch,
+    predict_stream,
+    predict_stream_batched,
+)
 from facedet_tpu_torch.engine.prediction import ObjectPrediction, PredictionResult
 
 __all__ = [
@@ -16,6 +23,18 @@ __all__ = [
     "YoloV11PoseDetectionModel",
     "get_prediction",
     "get_sliced_prediction",
+    "get_sliced_prediction_batch",
+    "predict_stream",
+    "predict_stream_batched",
     "ObjectPrediction",
     "PredictionResult",
+    "predict",
 ]
+
+
+def predict(*args, **kwargs):
+    """Batch prediction over a folder, an image or a COCO file (lazy import;
+    see engine/batch_predict.py)."""
+    from facedet_tpu_torch.engine.batch_predict import predict as _predict
+
+    return _predict(*args, **kwargs)

@@ -19,8 +19,14 @@ def process_single_image(
     slice_size: int = 640,
     overlap: float = 0.2,
     postprocess_match_threshold: float = 0.5,
+    ingest: str = "rgb",
 ) -> dict:
-    """One image -> output folder."""
+    """One image -> output folder.
+
+    ``ingest`` picks the host-to-device upload format: "yuv420" decodes the
+    file to planar YUV (1.5 bytes a pixel), "dct420" / "dct420s" read a
+    JPEG's own quantized coefficients, dense or as the sparse wire; the
+    device does the rest of the decode."""
     from facedet_tpu_torch.engine.predict import get_sliced_prediction
     from facedet_tpu_torch.utils.viz import (
         create_detection_summary,
@@ -33,7 +39,16 @@ def process_single_image(
     name = os.path.splitext(os.path.basename(image_path))[0]
     out_dir = os.path.join(output_root, name)
     os.makedirs(out_dir, exist_ok=True)
-    image = load_image(image_path)
+    if ingest == "yuv420":
+        from facedet_tpu_torch.data.native_loader import load_image_yuv420
+
+        image = load_image_yuv420(image_path)
+    elif ingest in ("dct420", "dct420s"):
+        from facedet_tpu_torch.data.native_loader import load_image_dct420
+
+        image = load_image_dct420(image_path)
+    else:
+        image = load_image(image_path)
     t0 = time.perf_counter()
     result = get_sliced_prediction(
         image,
@@ -46,9 +61,11 @@ def process_single_image(
         postprocess_match_metric="IOS",
         postprocess_match_threshold=postprocess_match_threshold,
         postprocess_class_agnostic=True,
+        input_format=ingest,
     )
     elapsed = time.perf_counter() - t0
     preds = result.object_prediction_list
+    image = result.image  # RGB view (reconstructed for yuv/dct ingest)
     vis = draw_detections_on_image(image, preds)
     save_image(os.path.join(out_dir, f"{name}_detections.jpg"), vis)
     crops = save_face_crops(image, preds, os.path.join(out_dir, "crops"), prefix=f"{name}_face")
@@ -70,8 +87,6 @@ def main(argv=None):
 
     ap = base_parser("YOLOv11 + SAHI batch face detection (PyTorch)")
     args = ap.parse_args(argv)
-    if args.ingest != "rgb":
-        raise SystemExit(f"error: --ingest {args.ingest} is not yet ported to facedet_tpu_torch")
     inputs = list_inputs(args.input)
     model = build_detector(
         DetectorConfig(
@@ -85,7 +100,7 @@ def main(argv=None):
     )
     stats = []
     for path in inputs:
-        s = process_single_image(path, model, args.output, args.slice, args.overlap)
+        s = process_single_image(path, model, args.output, args.slice, args.overlap, ingest=args.ingest)
         print(f"{s['image']}: {s['faces']} faces in {s['seconds']:.2f}s")
         stats.append(s)
     total = sum(s["faces"] for s in stats)

@@ -1,6 +1,6 @@
 """Shared CLI plumbing for the port's apps (counterpart of
-facedet_tpu/apps/common.py). Only the yolov11 family and rgb ingest are
-ported; the other choices exit with "not yet ported"."""
+facedet_tpu/apps/common.py). Only the yolov11 family is ported; the other
+families exit with "not yet ported"."""
 from __future__ import annotations
 
 import argparse
@@ -44,7 +44,7 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     ap.add_argument(
         "--ingest", default="rgb",
         choices=["rgb", "yuv420", "dct420", "dct420s"],
-        help="upload format; only rgb is ported",
+        help="host-to-device upload format",
     )
     ap.add_argument("--device", default="cuda", help="torch device: cuda (default) or cpu")
     return ap

@@ -15,6 +15,8 @@ import torch
 NUM_FACE_KEYPOINTS = 5  # left_eye, right_eye, nose, left_mouth, right_mouth
 
 _FIELDS = ("boxes", "scores", "classes", "kpts", "valid")
+# the detection axis of each field, counted from the end
+_DET_AXIS = {"boxes": -2, "scores": -1, "classes": -1, "kpts": -3, "valid": -1}
 
 
 def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -59,6 +61,11 @@ class Detections:
         return Detections(*(fn(getattr(self, f)) for f in _FIELDS))
 
     @staticmethod
+    def cat_batches(parts: list["Detections"]) -> "Detections":
+        """Join batched detections along their leading (image) axis."""
+        return Detections(*(torch.cat([getattr(p, f) for p in parts], dim=0) for f in _FIELDS))
+
+    @staticmethod
     def empty(capacity: int, num_keypoints: int = NUM_FACE_KEYPOINTS, device=None) -> "Detections":
         return Detections(
             boxes=torch.zeros((capacity, 4), dtype=torch.float32, device=device),
@@ -77,6 +84,12 @@ class Detections:
 
     def take(self, idx: torch.Tensor) -> "Detections":
         return self.map(lambda x: take_rows(x, idx))
+
+    def truncate(self, capacity: int) -> "Detections":
+        """The first ``capacity`` rows along the detection axis."""
+        return Detections(
+            *(getattr(self, f).narrow(_DET_AXIS[f], 0, min(capacity, self.capacity)) for f in _FIELDS)
+        )
 
     def mask(self, keep: torch.Tensor) -> "Detections":
         """AND the validity mask with ``keep``."""
@@ -98,9 +111,9 @@ class Detections:
 
 
 def concat_detections(parts: list[Detections], capacity: int) -> Detections:
-    """Concatenate along the capacity axis, then truncate to ``capacity``
-    keeping the highest scores."""
-    det = Detections(*(torch.cat([getattr(p, f) for p in parts], dim=0) for f in _FIELDS))
-    if det.capacity == capacity:
-        return det
-    return det.sort_by_score().map(lambda x: x[:capacity])
+    """Concatenate along the detection axis (leading batch axes allowed),
+    then sort by score and cut to ``capacity``. The sort always runs, as the
+    JAX pipeline's ``_truncate_by_score`` does: it is stable, so tied scores
+    keep the order of ``parts`` and of the rows inside each part."""
+    det = Detections(*(torch.cat([getattr(p, f) for p in parts], dim=_DET_AXIS[f]) for f in _FIELDS))
+    return det.sort_by_score().truncate(capacity)

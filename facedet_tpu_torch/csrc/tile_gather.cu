@@ -5,7 +5,11 @@
 //   * tile_gather_hwc <- gather_tiles_pallas / _tile_gather_kernel (:40-74):
 //     image [H,W,C] -> tiles [T,S_h,S_w,C];
 //   * tile_gather_chw <- gather_tiles_pallas_static (:83-120):
-//     image [C,H,W] -> tiles [T,C,S_h,S_w].
+//     image [C,H,W] -> tiles [T,C,S_h,S_w];
+//   * tile_gather_chw_batched <- the same kernel under jax.vmap in the batch
+//     pipeline (facedet_tpu/engine/predict.py:357-361): canvases [B,C,H,W]
+//     and one offset list -> tiles [B*T,C,S_h,S_w], image-major, the flat
+//     batch the detector's forward takes. One launch for the whole batch.
 // The TPU kernels issue one DMA per tile, with the offsets scalar-prefetched
 // (HWC) or baked in at compile time (CHW). Here a block reads its tile's
 // (y, x) from the int32 offsets [T,2] in device memory, and each offset is
@@ -20,10 +24,13 @@
 // the tiles written once, 48.4 MB in float32 (14.4 us) and 24.2 MB in
 // bfloat16 (7.2 us); overlapping reads can hit the 50 MB L2.
 // Design: one block per (tile row) in HWC and per (tile, channel, row) in
-// CHW; the threads of a block stride along the row with 16-byte loads and
-// stores when source and destination agree modulo 16 (true at the production
-// grid for every dtype), else with 4-byte words, else bytes. The copy is
-// element-type agnostic: uint8, float32 and bfloat16 all move as bytes.
+// CHW; grid.z carries the image of a batch, whose traffic and bound are B
+// times one image's (B=16 bfloat16 canvases at the production grid: 387 MB,
+// 115 us). The threads of a block stride along the row with 16-byte loads
+// and stores when source and destination agree modulo 16 (true at the
+// production grid for every dtype), else with 4-byte words, else bytes. The
+// copy is element-type agnostic: uint8, float32 and bfloat16 all move as
+// bytes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -65,7 +72,8 @@ __device__ __forceinline__ int dynamic_slice_start(int off, int dim, int size) {
   return min(max(off, 0), dim - size);
 }
 
-// grid = (S_h, planes): planes = T for HWC, T*C for CHW.
+// grid = (S_h, planes, B): planes = T for HWC, T*C for CHW; B images of one
+// size share the offsets (B = 1 for HWC and for the single-image CHW entry).
 template <bool kChw>
 __global__ void __launch_bounds__(kThreads)
 tile_gather_kernel(const unsigned char* __restrict__ img, const int* __restrict__ offs,
@@ -73,14 +81,15 @@ tile_gather_kernel(const unsigned char* __restrict__ img, const int* __restrict_
                    int elem) {
   const int r = blockIdx.x;
   const int plane = blockIdx.y;
+  const int b = blockIdx.z;
   const int t = kChw ? plane / C : plane;
   const int oy = dynamic_slice_start(offs[2 * t], H, Sh);
   const int ox = dynamic_slice_start(offs[2 * t + 1], W, Sw);
   long long src, dst, n;
   if (kChw) {
     const int c = plane - t * C;
-    src = (static_cast<long long>(c) * H + oy + r) * W + ox;
-    dst = (static_cast<long long>(plane) * Sh + r) * Sw;
+    src = ((static_cast<long long>(b) * C + c) * H + oy + r) * W + ox;
+    dst = ((static_cast<long long>(b) * gridDim.y + plane) * Sh + r) * Sw;
     n = Sw;
   } else {
     src = (static_cast<long long>(oy + r) * W + ox) * C;
@@ -91,10 +100,10 @@ tile_gather_kernel(const unsigned char* __restrict__ img, const int* __restrict_
 }
 
 template <bool kChw>
-int launch(const void* img, const void* offs, void* out, int T, int H, int W, int C, int Sh,
-           int Sw, int elem, void* stream) {
-  if (T <= 0 || Sh <= 0 || Sw <= 0 || C <= 0) return 0;
-  const dim3 grid(Sh, kChw ? T * C : T);
+int launch(const void* img, const void* offs, void* out, int B, int T, int H, int W, int C,
+           int Sh, int Sw, int elem, void* stream) {
+  if (B <= 0 || T <= 0 || Sh <= 0 || Sw <= 0 || C <= 0) return 0;
+  const dim3 grid(Sh, kChw ? T * C : T, B);
   tile_gather_kernel<kChw><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned char*>(img), static_cast<const int*>(offs),
       static_cast<unsigned char*>(out), H, W, C, Sh, Sw, elem);
@@ -103,16 +112,22 @@ int launch(const void* img, const void* offs, void* out, int T, int H, int W, in
 
 }  // namespace
 
-// Both return the cudaError_t of the launch (0 on success). The caller
-// checks shapes, bounds (S_h <= H, S_w <= W) and that T*C fits grid.y.
+// All return the cudaError_t of the launch (0 on success). The caller checks
+// shapes, bounds (S_h <= H, S_w <= W) and that T*C fits grid.y and B grid.z.
 extern "C" int facedet_tile_gather_hwc(const void* img, const void* offs, void* out, int T,
                                        int H, int W, int C, int Sh, int Sw, int elem,
                                        void* stream) {
-  return launch<false>(img, offs, out, T, H, W, C, Sh, Sw, elem, stream);
+  return launch<false>(img, offs, out, 1, T, H, W, C, Sh, Sw, elem, stream);
 }
 
 extern "C" int facedet_tile_gather_chw(const void* img, const void* offs, void* out, int T,
                                        int C, int H, int W, int Sh, int Sw, int elem,
                                        void* stream) {
-  return launch<true>(img, offs, out, T, H, W, C, Sh, Sw, elem, stream);
+  return launch<true>(img, offs, out, 1, T, H, W, C, Sh, Sw, elem, stream);
+}
+
+extern "C" int facedet_tile_gather_chw_batched(const void* img, const void* offs, void* out,
+                                               int B, int T, int C, int H, int W, int Sh,
+                                               int Sw, int elem, void* stream) {
+  return launch<true>(img, offs, out, B, T, H, W, C, Sh, Sw, elem, stream);
 }

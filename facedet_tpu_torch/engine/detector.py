@@ -101,16 +101,24 @@ class DetectionModel:
         return self.tile_forward(torch.as_tensor(tiles).to(self.device), float(conf))
 
     # --- host-side compatibility edge ---------------------------------
-    def perform_inference(self, image: np.ndarray) -> None:
+    def perform_inference(self, image) -> None:
         """Single image/tile inference: letterbox to ``image_size``, forward,
-        map back; stores the raw predictions on self."""
+        map back; stores the raw predictions on self. ``image`` is HWC, a
+        numpy array or a tensor, which goes to the model's device as it is
+        and is letterboxed there."""
         t0 = time.perf_counter()
-        img = np.asarray(image)
-        if img.dtype == np.uint8:
-            img = img.astype(np.float32) / 255.0
+        if isinstance(image, torch.Tensor):
+            img = image.to(self.device)
+            if img.dtype == torch.uint8:
+                img = img.to(torch.float32) / 255.0
+        else:
+            img = np.asarray(image)
+            if img.dtype == np.uint8:
+                img = img.astype(np.float32) / 255.0
+            img = torch.from_numpy(img).to(self.device)
         size = self.image_size or max(img.shape[:2])
         spec = compute_letterbox(img.shape[0], img.shape[1], int(size))
-        tile = apply_letterbox(torch.from_numpy(img).to(self.device), spec)
+        tile = apply_letterbox(img, spec)
         det = self.forward_tiles(tile[None]).map(lambda x: x[0])
         self._original_predictions = Detections(
             boxes=unletterbox_boxes(det.boxes, spec),

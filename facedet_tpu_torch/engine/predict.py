@@ -1,20 +1,30 @@
 """Sliced and standard prediction drivers — the port's public inference API.
 
-Counterpart of facedet_tpu/engine/predict.py (``get_prediction`` :1065,
-``get_sliced_prediction`` :1089), RGB input. The sliced pipeline is the
-JAX package's fused ``core`` (:310-330), run eagerly on the model's device:
-zero-padded bucketed canvas -> /255 -> tile gather (the CHW CUDA kernel of
-ops/kernels/tile_gather.py, straight into the NCHW batch the convs take) ->
-detector forward over the tile batch (+ the letterboxed full-image standard
-pass) -> slice-to-global shift -> truncate -> GreedyNMM/NMS merge -> clip ->
-optional fetch compaction -> one copy to the host.
+Counterpart of facedet_tpu/engine/predict.py: ``get_prediction``,
+``get_sliced_prediction``, ``get_sliced_prediction_batch``,
+``predict_stream`` and ``predict_stream_batched``, for the input formats
+``rgb``, ``yuv420``, ``dct420`` and ``dct420s``. The sliced pipeline is the
+JAX package's fused ``core`` / ``batch_core``, run eagerly on the model's
+device: decode the uploaded planes into a zero-padded bucketed CHW canvas in
+[0, 1] -> tile gather (the CHW CUDA kernel of ops/kernels/tile_gather.py,
+straight into the NCHW batch the convs take; one launch for a whole chunk of
+images) -> detector forward over the tile batch (+ the letterboxed
+full-image standard pass) -> slice-to-global shift -> truncate ->
+GreedyNMM/NMS merge -> clip -> optional fetch compaction -> copy to the host.
 
-The batch and stream drivers, the YUV/DCT ingest formats and the device
-mesh are not ported yet; they raise ``NotImplementedError``.
+Where JAX dispatches asynchronously, this module uses CUDA streams: a batch
+is staged into pinned host memory, uploaded on a copy stream, computed on the
+dispatching thread's stream after an event wait, and its result copied into
+pinned memory behind an event that only the consumer waits on.
+
+The device mesh and serving over several devices are not ported yet; they
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -22,9 +32,23 @@ import torch
 
 from facedet_tpu_torch.core.boxes import clip_boxes
 from facedet_tpu_torch.core.detections import Detections, concat_detections
-from facedet_tpu_torch.engine.detector import DetectionModel
+from facedet_tpu_torch.engine.detector import DetectionModel, _exact_float32
 from facedet_tpu_torch.engine.prediction import PredictionResult, detections_to_object_predictions
+from facedet_tpu_torch.ops.color import rgb_to_yuv420, yuv420_to_rgb_chw, yuv420_to_rgb_np
 from facedet_tpu_torch.ops.image import scale_and_translate_chw
+from facedet_tpu_torch.ops.jpeg_dct import (
+    DctImage,
+    _wire_sections,
+    decode_dct420_np,
+    decode_dct420_to_yuv_f32,
+    encode_dct420,
+    pack_sparse_ac,
+    pack_sparse_ac_batch,
+    sparse_cap_bucket,
+    sparse_nnz_entries,
+    unpack_sparse_ac,
+    wire_unpack_dct420s,
+)
 from facedet_tpu_torch.ops.kernels.tile_gather import gather_tiles_chw
 from facedet_tpu_torch.ops.nms import merge_detections
 from facedet_tpu_torch.ops.tiler import (
@@ -35,7 +59,15 @@ from facedet_tpu_torch.ops.tiler import (
     pad_grid_offsets,
 )
 
-__all__ = ["get_prediction", "get_sliced_prediction", "POSTPROCESS_DEFAULTS"]
+__all__ = [
+    "get_prediction",
+    "get_sliced_prediction",
+    "get_sliced_prediction_batch",
+    "predict_stream",
+    "predict_stream_batched",
+    "POSTPROCESS_DEFAULTS",
+    "INPUT_FORMATS",
+]
 
 POSTPROCESS_DEFAULTS = {
     "postprocess_type": "GREEDYNMM",
@@ -43,31 +75,39 @@ POSTPROCESS_DEFAULTS = {
     "postprocess_match_threshold": 0.5,
     "postprocess_class_agnostic": False,
 }
+INPUT_FORMATS = ("rgb", "yuv420", "dct420", "dct420s")
+
+# batch_core runs the detector over chunks of c images with c*T tiles at most
+_MAX_FLAT_TILES = 96
 
 
 def _not_ported(what: str):
     return NotImplementedError(f"{what} is not yet ported to facedet_tpu_torch")
 
 
+# --- the device pipeline ------------------------------------------------------
+
+
 def _shift_and_flatten(det: Detections, offsets: torch.Tensor, tile_valid: torch.Tensor) -> Detections:
-    """Per-tile detections [T, k] -> flat global-coordinate detections [T*k]."""
+    """Per-tile detections [..., T, k] -> flat global-coordinate detections
+    [..., T*k]."""
     off_xy = offsets.to(torch.float32).flip(-1)  # (y,x) -> (x,y)
     boxes = det.boxes + off_xy.repeat(1, 2)[:, None, :]
     kpts = det.kpts.clone()
     kpts[..., :2] += off_xy[:, None, None, :]
     valid = det.valid & tile_valid[:, None]
-    t, k = valid.shape
+    lead = valid.shape[:-2]
     return Detections(
-        boxes=boxes.reshape(t * k, 4),
-        scores=det.scores.reshape(t * k),
-        classes=det.classes.reshape(t * k),
-        kpts=kpts.reshape(t * k, det.kpts.shape[-2], 3),
-        valid=valid.reshape(t * k),
+        boxes=boxes.reshape(*lead, -1, 4),
+        scores=det.scores.reshape(*lead, -1),
+        classes=det.classes.reshape(*lead, -1),
+        kpts=kpts.reshape(*lead, -1, det.kpts.shape[-2], 3),
+        valid=valid.reshape(*lead, -1),
     )
 
 
 def _truncate_by_score(det: Detections, capacity: int) -> Detections:
-    return det.sort_by_score().map(lambda x: x[:capacity])
+    return det.sort_by_score().truncate(capacity)
 
 
 def _clip_detections(det: Detections, h: int, w: int) -> Detections:
@@ -87,17 +127,130 @@ def letterbox_full(canvas_chw: torch.Tensor, true_hw: torch.Tensor, img_size: in
     """The standard pass's input: ``jax.image.scale_and_translate`` of the
     padded canvas (antialiased linear, translation 0) into a top-left-aligned
     ``img_size``² image, at the scale of the true image size. Samples past
-    the canvas get weight 0: there is no centred grey pad. Returns
-    ([C, img_size, img_size], float32 scale)."""
+    the canvas get weight 0: there is no centred grey pad. A batch of
+    canvases [B,C,H,W] shares one true size, so one scale. Returns
+    ([..., C, img_size, img_size], float32 scale)."""
     scale = torch.minimum(img_size / true_hw[0], img_size / true_hw[1])
     return scale_and_translate_chw(canvas_chw, img_size, img_size, scale), scale
 
 
+def _canvas_dtype(detection_model) -> torch.dtype:
+    """The canvas is kept in the detector's compute dtype, as in the JAX
+    engine: bfloat16 for serving, float32 for the fidelity mode."""
+    return torch.bfloat16 if getattr(detection_model, "dtype", "") == "bfloat16" else torch.float32
+
+
+def decode_canvas(image, input_format: str, bucket_h: int, bucket_w: int, dtype: torch.dtype) -> torch.Tensor:
+    """Uploaded planes (already padded to the bucket on the host) -> the CHW
+    canvas [..., 3, bucket_h, bucket_w] in [0, 1], in ``dtype``. Every format
+    takes any number of leading batch axes.
+
+    * ``rgb``: an HWC image, uint8 or float in [0, 1];
+    * ``yuv420``: (Y, UV) uint8 planes: chroma upsample and BT.601
+      conversion on the device (ops/color.py);
+    * ``dct420``: (y_dc, y_ac, uv_dc, uv_ac, qy, qc) with the AC planes in
+      wire layout (coefficient-major, ``_dct_wire``), transposed back here
+      next to the IDCT products (ops/jpeg_dct.py);
+    * ``dct420s``: (y_dc, uv_dc, qy, qc, deltas, vals), the sparse AC wire,
+      rebuilt by a cumsum and a scatter into the same wire-layout planes."""
+    if input_format == "rgb":
+        chw = image.movedim(-1, -3).contiguous()
+        return chw.to(dtype) / 255.0 if chw.dtype == torch.uint8 else chw.to(dtype)
+    if input_format == "yuv420":
+        y, uv = image
+        return yuv420_to_rgb_chw(y, uv, out_dtype=dtype)
+    if input_format == "dct420":
+        y_dc, y_ac, uv_dc, uv_ac, qy, qc = image
+    elif input_format == "dct420s":
+        y_dc, uv_dc, qy, qc, deltas, vals = image
+        yb_h, yb_w = bucket_h // 8, bucket_w // 8
+        cb_h, cb_w = bucket_h // 16, bucket_w // 16
+        ny = 64 * yb_h * yb_w
+        nc = 2 * 64 * cb_h * cb_w
+        flat = unpack_sparse_ac(deltas, vals, ny + nc)
+        lead = flat.shape[:-1]
+        y_ac = flat[..., :ny].reshape(*lead, 64, yb_h, yb_w)
+        uv_ac = flat[..., ny:].reshape(*lead, 2, 64, cb_h, cb_w)
+    else:
+        raise ValueError(f"unknown input_format {input_format!r}; expected one of {INPUT_FORMATS}")
+    y_ac = y_ac.movedim(-3, -1)  # [..., 64, Hb, Wb] -> [..., Hb, Wb, 64]
+    uv_ac = uv_ac.movedim((-4, -3), (-2, -1))  # [..., 2, 64, Hb2, Wb2] -> [..., Hb2, Wb2, 2, 64]
+    y, uv = decode_dct420_to_yuv_f32(y_dc, y_ac, uv_dc, uv_ac, qy, qc, out_dtype=dtype)
+    return yuv420_to_rgb_chw(y, uv, out_dtype=dtype)
+
+
+def _pipeline(detection_model: DetectionModel, plan: dict, image, consts) -> Detections:
+    """The fused pipeline on a decoded-on-device input: one image (no batch
+    axis) or a chunk of same-size images (one leading axis). Returns the
+    merged, clipped and compacted detections, still on the device."""
+    offsets, tile_valid, true_hw = consts
+    sh, sw = plan["slice_height"], plan["slice_width"]
+    conf = plan["conf"]
+    canvas = decode_canvas(image, plan["input_format"], plan["bucket_h"], plan["bucket_w"], plan["canvas_dtype"])
+    lead = canvas.shape[:-3]
+    t = offsets.shape[0]
+    # one gather launch for the chunk: [c*T, 3, S, S], image-major
+    tiles = gather_tiles_chw(canvas, offsets, sh, sw)
+    det = detection_model.tile_forward_nchw(tiles, conf)
+    det = det.map(lambda x: x.reshape(*lead, t, *x.shape[1:]))
+    parts = [_shift_and_flatten(det, offsets, tile_valid)]
+    if plan["standard"]:
+        full_tiles, scale = letterbox_full(canvas, true_hw, plan["img_size"])
+        full = detection_model.tile_forward_nchw(full_tiles.reshape(-1, *full_tiles.shape[-3:]), conf)
+        full = full.map(lambda x: x.reshape(*lead, *x.shape[1:]))
+        kpts = full.kpts.clone()
+        kpts[..., :2] /= scale
+        parts.append(Detections(full.boxes / scale, full.scores, full.classes, kpts, full.valid))
+    combined = concat_detections(parts, plan["merge_capacity"])
+    merged = merge_detections(
+        combined,
+        mode=plan["postprocess_type"],
+        match_metric=plan["postprocess_match_metric"],
+        match_threshold=plan["postprocess_match_threshold"],
+        class_agnostic=plan["postprocess_class_agnostic"],
+    )
+    merged = _clip_detections(merged, plan["h"], plan["w"])
+    fetch = plan["fetch_capacity"]
+    if fetch and fetch < plan["merge_capacity"]:
+        # serving compaction: only the top rows leave the device
+        merged = _truncate_by_score(merged, fetch)
+    return merged
+
+
+def batch_core(detection_model: DetectionModel, plan: dict, batch, consts) -> Detections:
+    """The batch pipeline over ``n`` same-size images: chunks of ``c`` images
+    with ``c*T`` tiles at most ``_MAX_FLAT_TILES``. Per chunk, ingest, gather
+    and merge carry the image axis, and the detector runs over the flattened
+    [c*T] tile batch and the [c] letterboxed batch. Results do not depend on
+    the chunk size. ``batch`` is the uploaded wire buffer (``dct420s``), the
+    plane tuple, or the RGB canvas batch."""
+    b = plan["n"]
+    if plan["input_format"] == "dct420s" and not isinstance(batch, tuple):
+        batch = wire_unpack_dct420s(batch, b, plan["bucket_h"], plan["bucket_w"])
+    t = consts[0].shape[0]
+    # largest divisor of b keeping the flat tile batch within the limit
+    c = max(d for d in range(1, b + 1) if b % d == 0 and (d == 1 or d * t <= _MAX_FLAT_TILES))
+    outs = []
+    for i in range(0, b, c):
+        chunk = tuple(a[i : i + c] for a in batch) if isinstance(batch, tuple) else batch[i : i + c]
+        outs.append(_pipeline(detection_model, plan, chunk, consts))
+    return outs[0] if len(outs) == 1 else Detections.cat_batches(outs)
+
+
+# --- host side: image kinds, padding, staging -----------------------------------
+
+
 def _prepare_image(image):
-    """HWC RGB image (numpy, PIL or a torch tensor, which stays on its
-    device) with gray expanded and alpha dropped."""
+    """A ``DctImage`` (dct420 / dct420s ingest) or ``(Y, UV)`` planes (yuv420
+    ingest) pass through; otherwise an HWC RGB image (numpy, PIL or a torch
+    tensor, which stays on its device) with gray expanded and alpha dropped."""
+    if isinstance(image, DctImage):
+        return image
     if isinstance(image, tuple):
-        raise _not_ported("yuv420 / dct420 ingest")
+        y, uv = image
+        if y.ndim != 2 or uv.ndim != 3 or uv.shape[-1] != 2:
+            raise ValueError("yuv420 input must be (Y [H,W], UV [h2,w2,2])")
+        return image
     img = image if isinstance(image, torch.Tensor) else np.asarray(image)
     if img.ndim == 2:
         img = img[..., None].repeat(3, -1) if isinstance(img, np.ndarray) else img[..., None].expand(-1, -1, 3)
@@ -106,7 +259,39 @@ def _prepare_image(image):
     return img
 
 
+def _image_hw(img) -> tuple[int, int]:
+    if isinstance(img, DctImage):
+        return img.hw
+    if isinstance(img, tuple):
+        return img[0].shape[0], img[0].shape[1]
+    return img.shape[0], img.shape[1]
+
+
+def _to_yuv_planes(img) -> tuple[np.ndarray, np.ndarray]:
+    if isinstance(img, tuple):
+        return img
+    return rgb_to_yuv420(img)
+
+
+def _pad_yuv_planes(img, bucket_h: int, bucket_w: int):
+    """(Y, UV) planes -> zero/neutral-padded bucketed planes (host numpy)."""
+    y, uv = _to_yuv_planes(img)
+    y_p = np.zeros((bucket_h, bucket_w), np.uint8)
+    y_p[: y.shape[0], : y.shape[1]] = y
+    uv_p = np.full((bucket_h // 2, bucket_w // 2, 2), 128, np.uint8)
+    uv_p[: uv.shape[0], : uv.shape[1]] = uv
+    return y_p, uv_p
+
+
 def _display_image(img) -> np.ndarray:
+    """RGB array for result objects (reconstructs YUV/DCT-ingested frames;
+    fetches a tensor input)."""
+    if isinstance(img, DctImage):  # host-side decode, crop to true size
+        h, w = img.hw
+        y, uv = decode_dct420_np(img)
+        return yuv420_to_rgb_np(y[:h, :w], uv[: (h + 1) // 2, : (w + 1) // 2])
+    if isinstance(img, tuple):
+        return yuv420_to_rgb_np(img[0], img[1])
     if isinstance(img, torch.Tensor):
         arr = img.cpu()
         if arr.dtype != torch.uint8:
@@ -115,18 +300,338 @@ def _display_image(img) -> np.ndarray:
     return img
 
 
-def _canvas(img, bucket_h: int, bucket_w: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    """Zero-pad bottom/right to the bucket, move to ``device``, permute to
-    CHW once and scale uint8 to [0, 1] in ``dtype``: [3, bucket_h, bucket_w]."""
-    h, w = img.shape[0], img.shape[1]
-    if isinstance(img, np.ndarray):
-        padded = np.zeros((bucket_h, bucket_w, img.shape[2]), img.dtype)
-        padded[:h, :w] = img
-        dev = torch.from_numpy(padded).to(device)
-    else:
-        dev = torch.nn.functional.pad(img.to(device), (0, 0, 0, bucket_w - w, 0, bucket_h - h))
-    chw = dev.permute(2, 0, 1).contiguous()
-    return chw.to(dtype) / 255.0 if chw.dtype == torch.uint8 else chw.to(dtype)
+def _pad_dct_planes(img, bucket_h: int, bucket_w: int):
+    """DctImage -> coefficient planes zero-padded to the bucketed canvas.
+
+    Zero AC + zero DC decodes to mid-gray; black luma padding (parity with
+    the YUV path's zeroed canvas) needs DC = round(-1024 / q_dc) in the
+    padded blocks. Chroma zero-pads to neutral 128 by construction."""
+    if not isinstance(img, DctImage):  # raw RGB/YUV: encode on the fly
+        img = encode_dct420(img)
+    yb_h, yb_w = bucket_h // 8, bucket_w // 8
+    cb_h, cb_w = bucket_h // 16, bucket_w // 16
+    y_dc_pad = np.int16(round(-1024.0 / float(img.qy[0])))
+    y_dc = np.full((yb_h, yb_w), y_dc_pad, np.int16)
+    y_ac = np.zeros((yb_h, yb_w, 64), np.int8)
+    uv_dc = np.zeros((cb_h, cb_w, 2), np.int16)
+    uv_ac = np.zeros((cb_h, cb_w, 2, 64), np.int8)
+    sy, sx = img.y_dc.shape
+    y_dc[:sy, :sx] = img.y_dc
+    y_ac[:sy, :sx] = img.y_ac
+    cy_, cx_ = img.uv_dc.shape[:2]
+    uv_dc[:cy_, :cx_] = img.uv_dc
+    uv_ac[:cy_, :cx_] = img.uv_ac
+    return y_dc, y_ac, uv_dc, uv_ac, img.qy, img.qc
+
+
+def _dct_wire(planes):
+    """Block-major dct420 planes -> wire layout: AC coefficient-major
+    (y_ac [64, Hb, Wb], uv_ac [2, 64, Hb2, Wb2]), the layout the sparse
+    packer scans (each frequency's mostly-zero plane is contiguous); the
+    pipeline transposes back on the device."""
+    y_dc, y_ac, uv_dc, uv_ac, qy, qc = planes
+    return (
+        y_dc,
+        np.moveaxis(y_ac, -1, 0),
+        uv_dc,
+        np.moveaxis(uv_ac, (2, 3), (0, 1)),
+        qy,
+        qc,
+    )
+
+
+def _fill_pad(a: np.ndarray, rows: int, cols: int, value, axes=(0, 1)) -> None:
+    """Write ``value`` outside the top-left ``rows`` x ``cols`` region of the
+    two spatial ``axes`` of ``a`` (the bottom and right padding strips)."""
+    bottom = [slice(None)] * a.ndim
+    bottom[axes[0]] = slice(rows, None)
+    a[tuple(bottom)] = value
+    right = [slice(None)] * a.ndim
+    right[axes[0]] = slice(0, rows)
+    right[axes[1]] = slice(cols, None)
+    a[tuple(right)] = value
+
+
+def _stage_batch_host(imgs: list, input_format: str, bucket_h: int, bucket_w: int, alloc=np.empty):
+    """Same-size image batch -> host numpy batch in upload layout.
+
+    Single-copy staging: each image's planes are written straight into
+    preallocated batch buffers (a pad-then-stack pays a second full copy),
+    for all four ingest formats. ``alloc(shape, dtype)`` provides every
+    buffer that is uploaded, uninitialised: the streamed path hands out
+    pinned memory. Only the padding strips are filled, so each uploaded byte
+    is written once. Returns one uint8 wire buffer (``dct420s``), the plane
+    tuple (``yuv420`` / ``dct420``) or one canvas array (``rgb``); the
+    arrays equal those of the JAX package's ``_stage_batch_host``."""
+    n = len(imgs)
+    if input_format in ("dct420", "dct420s"):
+        yb_h, yb_w = bucket_h // 8, bucket_w // 8
+        cb_h, cb_w = bucket_h // 16, bucket_w // 16
+        imgs = [im if isinstance(im, DctImage) else encode_dct420(im) for im in imgs]
+        sparse = input_format == "dct420s"
+        if sparse:
+            # sparse wire: stage each image's AC straight into one flat
+            # [n, total] pack buffer (y wire planes then uv, contiguous, the
+            # byte order the dense branch uploads), then batch-pack into
+            # (position deltas, values) with one shared bucketed cap. The
+            # pack buffer is host scratch, not uploaded.
+            y_sz = 64 * yb_h * yb_w
+            uv_sz = 2 * 64 * cb_h * cb_w
+            flat2d = np.zeros((n, y_sz + uv_sz), np.int8)
+            y_ac = flat2d[:, :y_sz].reshape(n, 64, yb_h, yb_w)
+            uv_ac = flat2d[:, y_sz:].reshape(n, 2, 64, cb_h, cb_w)
+            # the small DC / quant-table head sections are copied into the
+            # wire once its size is known
+            head_alloc = np.empty
+        else:
+            # AC planes staged directly in wire layout (_dct_wire)
+            y_ac = alloc((n, 64, yb_h, yb_w), np.int8)
+            uv_ac = alloc((n, 2, 64, cb_h, cb_w), np.int8)
+            head_alloc = alloc
+        y_dc = head_alloc((n, yb_h, yb_w), np.int16)
+        uv_dc = head_alloc((n, cb_h, cb_w, 2), np.int16)
+        qy = head_alloc((n, 64), np.float32)
+        qc = head_alloc((n, 64), np.float32)
+        for i, im in enumerate(imgs):
+            sy, sx = im.y_dc.shape
+            cy_, cx_ = im.uv_dc.shape[:2]
+            # black-luma padding (parity with the YUV canvas): DC of a
+            # level-shifted black block is -1024 pre-quant
+            _fill_pad(y_dc[i], sy, sx, np.int16(round(-1024.0 / float(im.qy[0]))))
+            y_dc[i, :sy, :sx] = im.y_dc
+            _fill_pad(uv_dc[i], cy_, cx_, 0)
+            uv_dc[i, :cy_, :cx_] = im.uv_dc
+            if not sparse:
+                _fill_pad(y_ac[i], sy, sx, 0, axes=(1, 2))
+                _fill_pad(uv_ac[i], cy_, cx_, 0, axes=(2, 3))
+            y_ac[i, :, :sy, :sx] = np.moveaxis(im.y_ac, -1, 0)
+            uv_ac[i, :, :, :cy_, :cx_] = np.moveaxis(im.uv_ac, (2, 3), (0, 1))
+            qy[i] = im.qy
+            qc[i] = im.qc
+        if not sparse:
+            return y_dc, y_ac, uv_dc, uv_ac, qy, qc
+        # ONE contiguous upload buffer: the pack writes deltas and values
+        # straight into the wire's tail; the head sections are copied in.
+        sizes = _wire_sections(n, bucket_h, bucket_w)
+        fixed = sum(sizes)
+        wire = None
+
+        def alloc_tail(cap):
+            nonlocal wire
+            wire = alloc((fixed + 3 * n * cap,), np.uint8)
+            d = wire[fixed : fixed + 2 * n * cap].view(np.uint16)
+            v = wire[fixed + 2 * n * cap :].view(np.int8)
+            return d.reshape(n, cap), v.reshape(n, cap)
+
+        pack_sparse_ac_batch(flat2d, alloc=alloc_tail)
+        o = np.cumsum([0] + sizes)
+        for a, lo, hi in zip((y_dc, uv_dc, qy, qc), o[:-1], o[1:]):
+            wire[lo:hi] = a.view(np.uint8).ravel()
+        return wire
+    if input_format == "yuv420":
+        y_b = alloc((n, bucket_h, bucket_w), np.uint8)
+        uv_b = alloc((n, bucket_h // 2, bucket_w // 2, 2), np.uint8)
+        for i, im in enumerate(imgs):
+            y, uv = _to_yuv_planes(im)
+            _fill_pad(y_b[i], y.shape[0], y.shape[1], 0)
+            y_b[i, : y.shape[0], : y.shape[1]] = y
+            _fill_pad(uv_b[i], uv.shape[0], uv.shape[1], 128)
+            uv_b[i, : uv.shape[0], : uv.shape[1]] = uv
+        return y_b, uv_b
+    batch = alloc((n, bucket_h, bucket_w, imgs[0].shape[2]), imgs[0].dtype)
+    for i, im in enumerate(imgs):
+        _fill_pad(batch[i], im.shape[0], im.shape[1], 0)
+        batch[i, : im.shape[0], : im.shape[1]] = im
+    return batch
+
+
+def _stage_single_host(img, input_format: str, bucket_h: int, bucket_w: int):
+    """One host image -> the padded arrays ``decode_canvas`` takes."""
+    if input_format == "yuv420":
+        return _pad_yuv_planes(img, bucket_h, bucket_w)
+    if input_format == "dct420":
+        return _dct_wire(_pad_dct_planes(img, bucket_h, bucket_w))
+    if input_format == "dct420s":
+        y_dc, y_ac_w, uv_dc, uv_ac_w, qy, qc = _dct_wire(_pad_dct_planes(img, bucket_h, bucket_w))
+        flat = np.concatenate([y_ac_w.ravel(), uv_ac_w.ravel()])
+        nz = np.flatnonzero(flat)  # one scan, shared by sizing + pack
+        cap = sparse_cap_bucket(sparse_nnz_entries(flat, nz=nz), flat.size)
+        deltas, vals = pack_sparse_ac(flat, cap, nz=nz)
+        return y_dc, uv_dc, qy, qc, deltas, vals
+    if input_format != "rgb":
+        raise ValueError(f"unknown input_format {input_format!r}; expected one of {INPUT_FORMATS}")
+    if isinstance(img, (DctImage, tuple)):
+        raise ValueError("input_format='rgb' takes an RGB image, not YUV planes or a DctImage")
+    if img.shape[0] == bucket_h and img.shape[1] == bucket_w:
+        return img
+    padded = np.zeros((bucket_h, bucket_w, img.shape[2]), img.dtype)
+    padded[: img.shape[0], : img.shape[1]] = img
+    return padded
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    # uint16 deltas travel as their int16 bits (unpack_sparse_ac widens them)
+    return torch.from_numpy(a.view(np.int16) if a.dtype == np.uint16 else a).to(device)
+
+
+# --- plans, constants, fetches -------------------------------------------------
+
+
+def _plan(h: int, w: int, n, detection_model: DetectionModel, opts: dict) -> dict:
+    """Host-side (cheap) plan for one image size: grid, buckets, options."""
+    slice_height, slice_width = opts["slice_height"], opts["slice_width"]
+    if slice_height is None or slice_width is None:
+        if not opts["auto_slice_resolution"]:
+            raise ValueError("slice size required when auto_slice_resolution=False")
+        s = adaptive_slice_size(h, w)
+        slice_height, slice_width = slice_height or s, slice_width or s
+    if opts["input_format"] not in INPUT_FORMATS:
+        raise ValueError(f"unknown input_format {opts['input_format']!r}; expected one of {INPUT_FORMATS}")
+    grid = compute_slice_grid(
+        h, w, slice_height, slice_width, opts["overlap_height_ratio"], opts["overlap_width_ratio"]
+    )
+    t_bucket = bucket_tile_count(grid.num_tiles)
+    offsets, tile_valid = pad_grid_offsets(grid, t_bucket)
+    return {
+        "h": h, "w": w, "n": n, "grid": grid, "t_bucket": t_bucket,
+        "offsets": offsets, "tile_valid": tile_valid,
+        # the padded canvas is bucketed so a variable-resolution stream
+        # takes few distinct shapes
+        "bucket_h": bucket_image_dim(grid.padded_h), "bucket_w": bucket_image_dim(grid.padded_w),
+        "slice_height": slice_height, "slice_width": slice_width,
+        "standard": bool(opts["perform_standard_pred"]),
+        "conf": float(detection_model.confidence_threshold),
+        "postprocess_type": opts["postprocess_type"],
+        "postprocess_match_metric": opts["postprocess_match_metric"],
+        "postprocess_match_threshold": opts["postprocess_match_threshold"],
+        "postprocess_class_agnostic": opts["postprocess_class_agnostic"],
+        "merge_capacity": int(opts["merge_capacity"]),
+        "fetch_capacity": int(opts["fetch_capacity"]) if opts["fetch_capacity"] else 0,
+        "img_size": int(detection_model.image_size or max(slice_height, slice_width)),
+        "input_format": opts["input_format"],
+        "canvas_dtype": _canvas_dtype(detection_model),
+    }
+
+
+def _resident_grid_consts(detection_model: DetectionModel, plan: dict, device: torch.device):
+    """(offsets, tile_valid, true_hw) on the device, cached on the model by
+    value: a stream of same-size images uploads them once."""
+    cache = detection_model.__dict__.setdefault("_grid_consts", {})
+    key = (plan["offsets"].tobytes(), plan["tile_valid"].tobytes(), plan["h"], plan["w"], str(device))
+    entry = cache.get(key)
+    if entry is None:
+        entry = (
+            torch.from_numpy(plan["offsets"]).to(device),
+            torch.from_numpy(plan["tile_valid"]).to(device),
+            torch.tensor([plan["h"], plan["w"]], dtype=torch.float32, device=device),
+        )
+        cache[key] = entry
+    return entry
+
+
+class _Fetch:
+    """A device result on its way to the host. On a CUDA device the copy
+    goes into pinned memory without blocking, behind an event on the stream
+    that computed the result; ``result()`` waits on that event alone."""
+
+    def __init__(self, det: Detections):
+        self._event = None
+        if det.scores.device.type == "cuda":
+            self._host = det.map(
+                lambda x: torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x, non_blocking=True)
+            )
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = det
+
+    def result(self) -> Detections:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host
+
+
+class _StagingSlot:
+    """Pinned host buffers for one staged batch, reused across batches, and
+    the event of their last upload: ``alloc`` may rewrite a buffer only after
+    that event has fired."""
+
+    def __init__(self, device: torch.device, copy_stream):
+        self.device = device
+        self.copy_stream = copy_stream
+        self._buffers: list[torch.Tensor] = []
+        self._cursor = 0
+        self._uploaded = None
+
+    def begin(self) -> None:
+        if self._uploaded is not None:
+            self._uploaded.synchronize()
+        self._cursor = 0
+
+    def alloc(self, shape, dtype) -> np.ndarray:
+        """An uninitialised pinned array: a numpy view of the slot's next
+        buffer, which grows (by a quarter over the need) when it is short."""
+        nbytes = int(np.prod(shape)) * np.dtype(dtype).itemsize
+        k = self._cursor
+        self._cursor += 1
+        if k == len(self._buffers):
+            self._buffers.append(torch.empty(0, dtype=torch.uint8))
+        if self._buffers[k].numel() < nbytes:
+            self._buffers[k] = torch.empty(nbytes + nbytes // 4, dtype=torch.uint8, pin_memory=True)
+        return self._buffers[k][:nbytes].numpy().view(dtype).reshape(shape)
+
+    def upload(self, staged):
+        """Staged arrays -> device tensors, copied on the copy stream; the
+        calling thread's stream waits for the copy, and the tensors are
+        marked as used by it so their memory outlives its work."""
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self.copy_stream):
+            out = tuple(
+                torch.from_numpy(a).to(self.device, non_blocking=True)
+                for a in (staged if isinstance(staged, tuple) else (staged,))
+            )
+            self._uploaded = torch.cuda.Event()
+            self._uploaded.record()
+        compute.wait_event(self._uploaded)
+        for x in out:
+            x.record_stream(compute)
+        return out if isinstance(staged, tuple) else out[0]
+
+
+# --- single image ----------------------------------------------------------------
+
+
+def _dispatch_sliced(img, detection_model: DetectionModel, opts: dict):
+    """Enqueue the sliced pipeline for one image and start the copy of its
+    result to the host. Returns (the pending fetch, the plan, durations):
+    callers keep several images in flight (``predict_stream``) before they
+    wait on a result."""
+    if opts.get("mesh") is not None:
+        raise _not_ported("the device mesh")
+    h, w = _image_hw(img)
+    durations: dict[str, float] = {}
+    t0 = time.perf_counter()
+    plan = _plan(h, w, None, detection_model, opts)
+    durations["slice"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    device = detection_model.device
+    fmt = plan["input_format"]
+    with torch.inference_mode(), _exact_float32(plan["canvas_dtype"] == torch.float32):
+        if isinstance(img, torch.Tensor):
+            if fmt != "rgb":
+                raise ValueError("a tensor input is an RGB image: input_format must be 'rgb'")
+            # already on a device: pad there, no trip through the host
+            dev = torch.nn.functional.pad(
+                img.to(device), (0, 0, 0, plan["bucket_w"] - w, 0, plan["bucket_h"] - h)
+            )
+        else:
+            staged = _stage_single_host(img, fmt, plan["bucket_h"], plan["bucket_w"])
+            dev = tuple(_to_device(a, device) for a in staged) if isinstance(staged, tuple) else _to_device(staged, device)
+        consts = _resident_grid_consts(detection_model, plan, device)
+        fetch = _Fetch(_pipeline(detection_model, plan, dev, consts))
+    durations["prediction"] = time.perf_counter() - t0
+    return fetch, plan, durations
 
 
 def get_prediction(
@@ -137,19 +642,21 @@ def get_prediction(
     postprocess=None,
     verbose: int = 0,
 ) -> PredictionResult:
-    """Single-image (or single-slice) inference."""
+    """Single-image (or single-slice) inference. A tensor input stays on
+    its device (it is letterboxed there) and is fetched only for
+    ``PredictionResult.image``."""
     img = _prepare_image(image)
-    if isinstance(img, torch.Tensor):
-        img = _display_image(img)
+    if isinstance(img, (DctImage, tuple)):
+        raise ValueError("get_prediction takes an RGB image; the other formats need the sliced path")
     t0 = time.perf_counter()
     detection_model.perform_inference(img)
     dt = time.perf_counter() - t0
     detection_model.convert_original_predictions(
         shift_amount=shift_amount,
-        full_shape=full_shape if full_shape is not None else img.shape[:2],
+        full_shape=full_shape if full_shape is not None else tuple(img.shape[:2]),
     )
     return PredictionResult(
-        image=img,
+        image=_display_image(img),
         object_prediction_list=detection_model.object_prediction_list,
         durations_in_seconds={"prediction": dt},
     )
@@ -179,74 +686,37 @@ def get_sliced_prediction(
     """Sliced inference with global merge, signature-compatible with the
     JAX package's ``get_sliced_prediction``. ``merge_capacity`` bounds the
     detection count entering the merge; ``merge_buffer_length`` folds into
-    it. ``image`` may be a torch tensor HWC (uint8, or float in [0, 1]),
-    which is padded on its device."""
-    if input_format != "rgb":
-        raise _not_ported(f"input_format={input_format!r}")
-    if mesh is not None:
-        raise _not_ported("the device mesh")
+    it. ``image`` is an RGB image (numpy, PIL, or a torch tensor HWC, uint8
+    or float in [0, 1], which is padded on its device), ``(Y, UV)`` planes
+    with ``input_format="yuv420"``, or a ``DctImage`` with ``"dct420"`` /
+    ``"dct420s"`` (an RGB image is encoded on the fly). ``return_image=False``
+    skips the display image (``PredictionResult.image`` is None)."""
     if merge_buffer_length is not None:
         merge_capacity = min(merge_capacity, max(int(merge_buffer_length), 64))
     img = _prepare_image(image)
-    h, w = img.shape[0], img.shape[1]
-    durations: dict[str, float] = {}
-
+    opts = _stream_opts(dict(
+        slice_height=slice_height, slice_width=slice_width,
+        overlap_height_ratio=overlap_height_ratio, overlap_width_ratio=overlap_width_ratio,
+        perform_standard_pred=perform_standard_pred, postprocess_type=postprocess_type,
+        postprocess_match_metric=postprocess_match_metric,
+        postprocess_match_threshold=postprocess_match_threshold,
+        postprocess_class_agnostic=postprocess_class_agnostic,
+        auto_slice_resolution=auto_slice_resolution, merge_capacity=merge_capacity,
+        input_format=input_format, mesh=mesh, fetch_capacity=fetch_capacity,
+    ))
+    fetch, plan, durations = _dispatch_sliced(img, detection_model, opts)
     t0 = time.perf_counter()
-    if slice_height is None or slice_width is None:
-        if not auto_slice_resolution:
-            raise ValueError("slice size required when auto_slice_resolution=False")
-        s = adaptive_slice_size(h, w)
-        slice_height = slice_height or s
-        slice_width = slice_width or s
-    grid = compute_slice_grid(h, w, slice_height, slice_width, overlap_height_ratio, overlap_width_ratio)
-    t_bucket = bucket_tile_count(grid.num_tiles)
-    offsets, tile_valid = pad_grid_offsets(grid, t_bucket)
-    bucket_h = bucket_image_dim(grid.padded_h)
-    bucket_w = bucket_image_dim(grid.padded_w)
-    durations["slice"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    device = detection_model.device
-    conf = float(detection_model.confidence_threshold)
-    img_size = int(detection_model.image_size or max(slice_height, slice_width))
-    # the canvas is kept in the detector's compute dtype, as in the JAX engine
-    canvas_dtype = torch.bfloat16 if getattr(detection_model, "dtype", "") == "bfloat16" else torch.float32
-    with torch.inference_mode():
-        canvas = _canvas(img, bucket_h, bucket_w, device, canvas_dtype)
-        offsets_dev = torch.from_numpy(offsets).to(device)
-        tile_valid_dev = torch.from_numpy(tile_valid).to(device)
-        true_hw = torch.tensor([h, w], dtype=torch.float32, device=device)
-
-        tiles = gather_tiles_chw(canvas, offsets_dev, slice_height, slice_width)
-        det = detection_model.tile_forward_nchw(tiles, conf)
-        parts = [_shift_and_flatten(det, offsets_dev, tile_valid_dev)]
-        if perform_standard_pred:
-            full_tile, scale = letterbox_full(canvas, true_hw, img_size)
-            full = detection_model.tile_forward_nchw(full_tile[None], conf).map(lambda x: x[0])
-            kpts = full.kpts.clone()
-            kpts[..., :2] /= scale
-            parts.append(Detections(full.boxes / scale, full.scores, full.classes, kpts, full.valid))
-        combined = concat_detections(parts, merge_capacity)
-        merged = merge_detections(
-            combined,
-            mode=postprocess_type,
-            match_metric=postprocess_match_metric,
-            match_threshold=postprocess_match_threshold,
-            class_agnostic=postprocess_class_agnostic,
-        )
-        merged = _clip_detections(merged, h, w)
-        if fetch_capacity and fetch_capacity < merge_capacity:
-            merged = _truncate_by_score(merged, fetch_capacity)
-        # one copy of the whole result to the host
-        merged = merged.to("cpu")
-    durations["prediction"] = time.perf_counter() - t0
+    merged = fetch.result()
+    durations["prediction"] += time.perf_counter() - t0
     durations["postprocess"] = 0.0  # merged on the device inside the pipeline
 
-    preds = detections_to_object_predictions(merged, detection_model.category_mapping, full_shape=(h, w))
+    preds = detections_to_object_predictions(
+        merged, detection_model.category_mapping, full_shape=(plan["h"], plan["w"])
+    )
     if verbose:
         print(
-            f"Performing prediction on {grid.num_tiles} slices "
-            f"(bucket {t_bucket}, {slice_height}x{slice_width}): "
+            f"Performing prediction on {plan['grid'].num_tiles} slices "
+            f"(bucket {plan['t_bucket']}, {plan['slice_height']}x{plan['slice_width']}): "
             + ", ".join(f"{k}={v:.3f}s" for k, v in durations.items())
         )
     return PredictionResult(
@@ -255,3 +725,214 @@ def get_sliced_prediction(
         durations_in_seconds=durations,
         detections=merged,
     )
+
+
+def predict_stream(
+    images,
+    detection_model: DetectionModel,
+    window: int = 3,
+    raw: bool = False,
+    **sliced_kwargs,
+):
+    """Pipelined sliced prediction over an image stream.
+
+    Keeps up to ``window`` images in flight: the next images' staging,
+    uploads and device work overlap the current image's copy to the host.
+    Yields a ``PredictionResult`` per image, in input order (or the merged
+    ``Detections`` on the host when ``raw=True``).
+    """
+    opts = _stream_opts(sliced_kwargs)
+
+    def finalize(img, fetch, plan, durations):
+        merged = fetch.result()
+        if raw:
+            return merged
+        preds = detections_to_object_predictions(
+            merged, detection_model.category_mapping, full_shape=(plan["h"], plan["w"])
+        )
+        return PredictionResult(
+            image=_display_image(img),
+            object_prediction_list=preds,
+            durations_in_seconds=durations,
+            detections=merged,
+        )
+
+    inflight: deque = deque()
+    for image in images:
+        img = _prepare_image(image)
+        inflight.append((img, *_dispatch_sliced(img, detection_model, opts)))
+        if len(inflight) >= window:
+            yield finalize(*inflight.popleft())
+    while inflight:
+        yield finalize(*inflight.popleft())
+
+
+# --- batches -----------------------------------------------------------------------
+
+
+def _plan_sliced_batch(imgs: list, detection_model: DetectionModel, opts: dict) -> dict:
+    """Host-side (cheap) batch plan: grid, buckets, options."""
+    if opts.get("mesh") is not None:
+        raise _not_ported("the device mesh")
+    h, w = _image_hw(imgs[0])
+    if any(_image_hw(im) != (h, w) for im in imgs):
+        raise ValueError("batched sliced prediction requires same-size images")
+    if any(isinstance(im, torch.Tensor) for im in imgs):
+        raise ValueError("batched sliced prediction stages host images; pass numpy arrays, planes or DctImages")
+    return _plan(h, w, len(imgs), detection_model, opts)
+
+
+def _dispatch_staged_batch(plan: dict, staged, detection_model: DetectionModel,
+                           slot: Optional[_StagingSlot] = None) -> _Fetch:
+    """Upload a host-staged batch, enqueue the batch pipeline and start the
+    copy of its result (batch axis leading) to the host. With a staging
+    ``slot`` the upload runs on the slot's copy stream from pinned memory."""
+    device = detection_model.device
+    with torch.inference_mode(), _exact_float32(plan["canvas_dtype"] == torch.float32):
+        if slot is not None:
+            batch_dev = slot.upload(staged)
+        elif isinstance(staged, tuple):
+            batch_dev = tuple(_to_device(a, device) for a in staged)
+        else:
+            batch_dev = _to_device(staged, device)
+        consts = _resident_grid_consts(detection_model, plan, device)
+        return _Fetch(batch_core(detection_model, plan, batch_dev, consts))
+
+
+def _dispatch_sliced_batch(imgs: list, detection_model: DetectionModel, opts: dict) -> _Fetch:
+    """Plan + stage + upload + dispatch in one call (the non-streamed batch
+    path). The streamed path runs the phases on separate threads: see
+    ``predict_stream_batched``."""
+    plan = _plan_sliced_batch(imgs, detection_model, opts)
+    staged = _stage_batch_host(imgs, plan["input_format"], plan["bucket_h"], plan["bucket_w"])
+    return _dispatch_staged_batch(plan, staged, detection_model)
+
+
+def _batch_results(imgs: list, merged: Detections, detection_model: DetectionModel) -> list[PredictionResult]:
+    h, w = _image_hw(imgs[0])
+    results = []
+    for i, im in enumerate(imgs):
+        det = merged.map(lambda x: x[i])
+        preds = detections_to_object_predictions(det, detection_model.category_mapping, full_shape=(h, w))
+        results.append(PredictionResult(image=_display_image(im), object_prediction_list=preds, detections=det))
+    return results
+
+
+def get_sliced_prediction_batch(
+    images,
+    detection_model: DetectionModel,
+    raw: bool = False,
+    **sliced_kwargs,
+):
+    """Batched sliced prediction over SAME-SIZE images: one upload, one tile
+    gather launch per chunk, the detector over flattened tile batches, so the
+    per-launch host cost is shared by the batch. Returns a list of
+    ``PredictionResult`` (or the batched ``Detections`` on the host when
+    ``raw=True``)."""
+    imgs = [_prepare_image(im) for im in images]
+    if not imgs:
+        return []
+    merged = _dispatch_sliced_batch(imgs, detection_model, _stream_opts(sliced_kwargs)).result()
+    return merged if raw else _batch_results(imgs, merged, detection_model)
+
+
+def predict_stream_batched(
+    images,
+    detection_model: DetectionModel,
+    batch_size: int = 8,
+    window: int = 3,
+    raw: bool = False,
+    devices=None,
+    **sliced_kwargs,
+):
+    """Windowed, pipelined batched sliced prediction over an image stream
+    (default ``window=3`` batches in flight): the serving configuration.
+
+    Consecutive same-size images are grouped into batches of ``batch_size``
+    (a size change flushes the batch); up to ``window`` batches stay in
+    flight. Two single-thread workers keep order: one stages a batch into
+    pinned host memory, the other uploads it on a copy stream and enqueues
+    the device work. The merge reads a flag back from the device once per
+    round, which blocks the thread that enqueues, so that thread is not the
+    one that waits for results: the caller's thread only waits on the event
+    of a batch's copy to the host. Yields per batch, in input order, a list
+    of ``PredictionResult`` (or the batched ``Detections`` on the host when
+    ``raw=True``). An exception in a worker is raised here, when its batch's
+    turn comes.
+
+    ``devices``: serving over several devices is not ported; a single entry
+    must be the model's own device.
+    """
+    opts = _stream_opts(sliced_kwargs)
+    device = detection_model.device
+    if devices is not None:
+        devices = list(devices.devices.flat) if hasattr(devices, "devices") else list(devices)
+        if len(devices) > 1:
+            raise _not_ported("serving over several devices")
+        if devices and torch.device(devices[0]).type != device.type:
+            raise ValueError(f"devices={devices} does not hold the model, which is on {device}")
+    on_card = device.type == "cuda"
+    copy_stream = torch.cuda.Stream(device) if on_card else None
+    # a slot is reused once `window` later batches were flushed, by when its
+    # batch has been consumed; the slot still waits on its own upload event
+    slots = [_StagingSlot(device, copy_stream) for _ in range(max(window, 1) + 1)] if on_card else None
+
+    def finalize(imgs, fut):
+        merged = fut.result().result()
+        return merged if raw else _batch_results(imgs, merged, detection_model)
+
+    def stage(pending, plan, slot):
+        if slot is None:
+            return _stage_batch_host(pending, plan["input_format"], plan["bucket_h"], plan["bucket_w"])
+        slot.begin()
+        return _stage_batch_host(pending, plan["input_format"], plan["bucket_h"], plan["bucket_w"], alloc=slot.alloc)
+
+    inflight: deque = deque()
+    pending: list = []
+    stage_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="facedet-stage")
+    dispatch_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="facedet-dispatch")
+    n_flushed = 0
+
+    def flush(pending):
+        nonlocal n_flushed
+        plan = _plan_sliced_batch(pending, detection_model, opts)
+        slot = slots[n_flushed % len(slots)] if slots else None
+        n_flushed += 1
+        staged_fut = stage_pool.submit(stage, pending, plan, slot)
+        fut = dispatch_pool.submit(
+            lambda: _dispatch_staged_batch(plan, staged_fut.result(), detection_model, slot=slot)
+        )
+        inflight.append((pending, fut))
+
+    try:
+        for image in images:
+            img = _prepare_image(image)
+            if pending and (_image_hw(img) != _image_hw(pending[0]) or len(pending) >= batch_size):
+                flush(pending)
+                pending = []
+                if len(inflight) >= window:
+                    yield finalize(*inflight.popleft())
+            pending.append(img)
+        if pending:
+            flush(pending)
+        while inflight:
+            yield finalize(*inflight.popleft())
+    finally:
+        stage_pool.shutdown(wait=True, cancel_futures=True)
+        dispatch_pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _stream_opts(sliced_kwargs: dict) -> dict:
+    known = {
+        "slice_height": None, "slice_width": None,
+        "overlap_height_ratio": 0.2, "overlap_width_ratio": 0.2,
+        "perform_standard_pred": True,
+        "postprocess_type": "GREEDYNMM", "postprocess_match_metric": "IOS",
+        "postprocess_match_threshold": 0.5, "postprocess_class_agnostic": False,
+        "auto_slice_resolution": True, "merge_capacity": 1024,
+        "input_format": "rgb", "fetch_capacity": None, "mesh": None,
+    }
+    unknown = set(sliced_kwargs) - set(known)
+    if unknown:
+        raise TypeError(f"unknown sliced-prediction options: {sorted(unknown)}")
+    return {k: sliced_kwargs.get(k, default) for k, default in known.items()}

@@ -48,9 +48,10 @@ def compute_weight_mat(in_size: int, out_size: int, scale, translation=0.0, devi
 
 def scale_and_translate_chw(image: torch.Tensor, out_h: int, out_w: int, scale) -> torch.Tensor:
     """``jax.image.scale_and_translate(image_hwc, (out_h, out_w, C), (0, 1),
-    [scale, scale], [0, 0], method="linear")`` for an image in CHW layout.
-    The weights are cast to the image dtype first, as in JAX."""
-    _, h, w = image.shape
+    [scale, scale], [0, 0], method="linear")`` for an image in CHW layout
+    (any leading batch axes; one scale for the batch). The weights are cast
+    to the image dtype first, as in JAX."""
+    h, w = image.shape[-2:]
     wh = compute_weight_mat(h, out_h, scale, device=image.device).to(image.dtype)
     ww = compute_weight_mat(w, out_w, scale, device=image.device).to(image.dtype)
     return torch.matmul(torch.matmul(wh.t(), image), ww)
@@ -58,8 +59,9 @@ def scale_and_translate_chw(image: torch.Tensor, out_h: int, out_w: int, scale) 
 
 def resize_chw(image: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """``jax.image.resize(image_hwc, (out_h, out_w, C), "bilinear")`` for an
-    image in CHW layout: axes whose size does not change are left alone."""
-    _, h, w = image.shape
+    image in CHW layout (any leading axes): axes whose size does not change
+    are left alone."""
+    h, w = image.shape[-2:]
     out = image
     if out_h != h:
         wh = compute_weight_mat(h, out_h, out_h / h, device=image.device).to(image.dtype)

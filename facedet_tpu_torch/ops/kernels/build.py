@@ -31,6 +31,7 @@ SIGNATURES = {
     "tile_gather": {
         "facedet_tile_gather_hwc": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "facedet_tile_gather_chw": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "facedet_tile_gather_chw_batched": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     },
 }
 

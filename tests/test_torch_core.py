@@ -157,6 +157,39 @@ def test_concat_detections_truncates_by_score():
         np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)), err_msg=f)
 
 
+@pytest.mark.parametrize("capacity", [21, 15, 64])
+def test_tail_concat_sorts_ties_in_jax_row_order(capacity):
+    """The pipeline's tail (facedet_tpu/engine/predict.py:282-295) joins the
+    tile part and the full-image part and always sorts by score, also when
+    the capacity already fits. Scores tied across the two parts keep JAX's
+    row order (tile rows first): exact equality, with and without a leading
+    batch axis."""
+    from facedet_tpu.engine.predict import _truncate_by_score as jtruncate
+
+    rng = np.random.default_rng(6)
+    batches = []
+    for _ in range(2):
+        parts = [_det_arrays(rng, 12), _det_arrays(rng, 9)]
+        joined = JDetections(**{k: jnp.concatenate([jnp.asarray(p[k]) for p in parts], axis=0) for k in parts[0]})
+        want = jtruncate(joined, capacity)
+        tparts = [Detections(**{k: torch.from_numpy(v) for k, v in p.items()}) for p in parts]
+        got = concat_detections(tparts, capacity)
+        assert got.capacity == min(capacity, 21)
+        for f in ("boxes", "scores", "classes", "kpts", "valid"):
+            np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)), err_msg=f)
+        batches.append((tparts, got))
+    # the same two images as one batch: [2, N, ...] parts
+    stacked = [
+        Detections(*(torch.stack([getattr(b[0][i], f) for b in batches]) for f in ("boxes", "scores", "classes", "kpts", "valid")))
+        for i in range(2)
+    ]
+    got = concat_detections(stacked, capacity)
+    assert got.boxes.shape == (2, min(capacity, 21), 4) and got.kpts.shape == (2, min(capacity, 21), 5, 3)
+    for i, (_, single) in enumerate(batches):
+        for f in ("boxes", "scores", "classes", "kpts", "valid"):
+            np.testing.assert_array_equal(getattr(got, f)[i].numpy(), getattr(single, f).numpy(), err_msg=f)
+
+
 @pytest.mark.parametrize(
     "in_hw,out_hw,scale",
     [

@@ -4,6 +4,7 @@ interpret mode as tests/test_pallas_gather.py runs them.
 
 Tolerance: bit-exact (atol=0). A gather copies values; nothing is computed.
 """
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -103,6 +104,41 @@ def test_out_of_range_offsets_clamp_like_dynamic_slice(dtype):
     np.testing.assert_array_equal(_np(chw), want.transpose(0, 3, 1, 2))
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("batch", [1, 3])
+def test_batched_chw_matches_vmap_of_jax_gather(dtype, batch):
+    """The batch pipeline maps the gather over the images of a chunk
+    (facedet_tpu/engine/predict.py:357-361) and flattens to [B*T, ...],
+    image-major. Offsets include unaligned and out-of-range ones."""
+    np_dt, t_dt = DTYPES[dtype]
+    arr = np.random.default_rng(5).integers(0, 256, (batch, 72, 96, 3)).astype(np_dt)
+    offs = np.array([[0, 0], [8, 16], [51, 77], [-5, 2000], [1000, -3]], np.int32)
+    want = jax.vmap(lambda p: jax_gather_tiles(p, jnp.asarray(offs), 16, 24))(jnp.asarray(arr))
+    want = _jnp(want).reshape(batch * 5, 16, 24, 3).transpose(0, 3, 1, 2)
+    chw = torch.from_numpy(arr.astype(np.float32)).to(t_dt).permute(0, 3, 1, 2).contiguous()
+    got = tg.gather_tiles_chw(chw, torch.from_numpy(offs), 16, 24)
+    assert got.dtype == t_dt and got.shape == (batch * 5, 3, 16, 24)
+    np.testing.assert_array_equal(_np(got), want)
+    # image b's tiles are rows [b*T, (b+1)*T), equal to the single-image call
+    for b in range(batch):
+        single = tg.gather_tiles_chw(chw[b], torch.from_numpy(offs), 16, 24)
+        assert torch.equal(got[b * 5 : (b + 1) * 5], single)
+
+
+def test_batched_chw_production_grid_and_static_offsets():
+    grid = tiler.compute_slice_grid(1024, 1536, 640, 640, 0.2, 0.2)
+    img = torch.from_numpy(np.random.default_rng(6).integers(0, 255, (2, 3, 1024, 1536), np.uint8))
+    got = tg.gather_tiles_chw(img, grid.offsets, 640, 640)
+    assert got.shape == (12, 3, 640, 640)
+    for b in range(2):
+        for t, (y, x) in enumerate(grid.offsets):
+            assert torch.equal(got[b * 6 + t], img[b, :, y : y + 640, x : x + 640])
+    with pytest.raises(ValueError, match="outside"):
+        tg.gather_tiles_chw(img, [(500, 0)], 640, 640)
+    with pytest.raises(ValueError, match="rank 3 or 4"):
+        tg.gather_tiles_chw(img[None], torch.zeros((1, 2), dtype=torch.int32), 640, 640)
+
+
 def test_single_tile():
     arr, img = _image((33, 47, 3), "uint8", seed=3)
     offs = np.array([[5, 9]], np.int32)
@@ -140,4 +176,6 @@ def test_no_plain_fallback_off_the_cpu():
         tg.gather_tiles_hwc(img, offs, 4, 4)
     with pytest.raises(ValueError, match="unsupported device"):
         tg.gather_tiles_chw(img.permute(2, 0, 1), offs, 4, 4)
-    assert tg.LAUNCHES == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        tg.gather_tiles_chw(img.permute(2, 0, 1)[None], offs, 4, 4)
+    assert tg.LAUNCHES == before and set(before) == {"gather_hwc", "gather_chw", "gather_chw_batched"}

@@ -42,6 +42,29 @@ def test_kernels_match_plain_versions_on_card(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("batch", [1, 3, 16])
+def test_batched_chw_kernel_matches_plain_version_on_card(cuda, dtype, batch):
+    """One launch for the whole batch, counted once; production, unaligned
+    and out-of-range offsets."""
+    gen = torch.Generator(device=cuda).manual_seed(batch)
+    img = torch.randint(0, 256, (batch, 3, 1024, 1536), generator=gen, device=cuda, dtype=torch.uint8).to(DTYPES[dtype])
+    offs = torch.tensor(
+        [[0, 0], [0, 512], [0, 896], [384, 0], [384, 512], [384, 896], [3, 5], [-5, 2000], [1000, -3]],
+        dtype=torch.int32, device=cuda,
+    )
+    before = dict(tg.LAUNCHES)
+    got = tg.gather_tiles_chw(img, offs, 640, 640)
+    torch.cuda.synchronize()
+    assert got.shape == (batch * 9, 3, 640, 640)
+    assert torch.equal(got, tg.gather_tiles_chw_ref(img, offs, 640, 640))
+    assert tg.LAUNCHES["gather_chw_batched"] == before["gather_chw_batched"] + 1
+    assert tg.LAUNCHES["gather_chw"] == before["gather_chw"]
+    with pytest.raises(ValueError, match="contiguous"):
+        tg.gather_tiles_chw(img.transpose(2, 3), offs, 640, 640)
+
+
+@pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take_on_card(cuda):
     offs = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):

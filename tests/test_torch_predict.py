@@ -94,12 +94,40 @@ def test_tensor_input_and_fetch_compaction(models, image):
     _assert_close(compact.object_prediction_list, base.object_prediction_list)
 
 
+def test_get_prediction_tensor_input_stays_a_tensor(models, image):
+    """A CPU tensor and the same numpy array give equal results (the tensor
+    is letterboxed where it lies and fetched only for ``.image``), in uint8
+    and as floats in [0, 1]."""
+    _, model = models
+    try:
+        model.confidence_threshold = 0.05
+        base = get_prediction(image, model)
+        as_uint8 = get_prediction(torch.from_numpy(image), model)
+        as_float = get_prediction(torch.from_numpy(image).float() / 255.0, model)
+    finally:
+        model.confidence_threshold = 0.25
+    assert len(base.object_prediction_list) > 0
+    for got in (as_uint8, as_float):
+        for a, b in zip(_arrays(got.object_prediction_list), _arrays(base.object_prediction_list)):
+            np.testing.assert_array_equal(a, b)
+        assert isinstance(got.image, np.ndarray)
+        np.testing.assert_array_equal(got.image, image)
+    assert got.object_prediction_list[0].full_shape == list(image.shape[:2])
+
+
 def test_unported_options_raise(models, image):
+    """What is still unported raises: the mesh, several devices, a video
+    source. The input formats are ported and no longer raise."""
+    from facedet_tpu_torch import predict, predict_stream_batched
+
     _, model = models
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_sliced_prediction(image, model, input_format="yuv420")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
         get_sliced_prediction(image, model, mesh=object())
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        list(predict_stream_batched([image], model, devices=["cpu", "cpu"]))
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        predict(detection_model=model, source="clip.mp4")
+    assert len(get_sliced_prediction(image, model, input_format="yuv420", **SLICED).object_prediction_list) > 0
 
 
 def test_cli_writes_folders_and_summaries(tmp_path):
@@ -117,6 +145,5 @@ def test_cli_writes_folders_and_summaries(tmp_path):
     for s in (1, 2):
         folder = tmp_path / "out" / f"img{s}"
         assert (folder / f"img{s}_summary.txt").exists() and (folder / f"img{s}_detections.jpg").exists()
-    for extra in (["--family", "scrfd"], ["--ingest", "yuv420"]):
-        with pytest.raises(SystemExit, match="not yet ported"):
-            app_yolo_sahi.main(args + extra)
+    with pytest.raises(SystemExit, match="not yet ported"):
+        app_yolo_sahi.main(args + ["--family", "scrfd"])
