@@ -9,9 +9,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 2. build: every CUDA source of the port, compiled with nvcc for sm_90a;
 3. kernels: each kernel held bit-exactly against its plain PyTorch version
    on the card (production grid, unaligned, out-of-range and T=1 offsets;
-   uint8, float32, bfloat16; the batched CHW gather for B in 1, 3, 16) and
-   timed with CUDA events beside its byte bound, its plain version and one
-   PyTorch advanced-indexing call;
+   uint8, float32, bfloat16; the batched CHW gather for B in 1, 3, 16; the
+   CHW gather also on the enhance-first pipeline's 2048x3072 canvas, on an
+   odd width whose rows are not 16-byte aligned and on halo windows that
+   are not square) and timed with CUDA events beside its byte bound, its
+   plain version and one PyTorch advanced-indexing call;
 4. single-image main path, with the launch counts set to 0 first:
    get_sliced_prediction with the golden yolo11n weights in float32 (TF32
    off) held against the same call on the CPU, get_prediction likewise, the
@@ -33,7 +35,23 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 9. folder run and CLI: predict() over a folder with ingest="dct420s", the CLI with
    --ingest yuv420, and one JPEG through the native coefficient reader where
    libjpeg's headers exist;
-10. report: a ``kernels`` JSON line, the nvidia-smi line, and last the
+10. SR fidelity: RealESRGAN_x2plus and x4plus with the golden weights in
+   float32 (TF32 off) on a 96x128 image, the card against this host's CPU;
+11. SR main path at full width, with the launch counts set to 0 first:
+   FaceEnhancer.enhance_image, x2plus on 1024x1536 and x4plus on 512x768 in
+   bfloat16: the tile plan, ms per image, a profile, peak memory, achieved
+   TFLOP/s, PSNR against float32 on the card; the cascade alias and
+   outscale 2 on the x4 net once each;
+12. pipeline v2 (enhance_first_pipeline, x2, fixed_grid, 1024x1536): the
+   enhanced tensor goes into the sliced detection on the device; the card
+   against the CPU in float32 on 256x384; ms per image, enhance and detect;
+13. pipeline v1 and the fetch wire: detect_first_pipeline with crops
+   written and enhanced, enhance_detections, the DCT fetch pipeline dense
+   and sparse on the card against the CPU, enhance_to_jpeg's branch and
+   the bytes each fetch format moves;
+14. the app_v2, app_v1, app_enhancer and app_yolo_full CLIs as
+   subprocesses; the counts are read after them;
+15. report: a ``kernels`` JSON line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 It imports nothing of jax or facedet_tpu and needs the checkout: run alone
@@ -94,6 +112,16 @@ KERNELS = [
         "replaces": "facedet_tpu/ops/pallas/tile_gather.py:114",
     },
 ]
+KERNELS.append({
+    # the single-image CHW gather at the shape the enhance-first pipeline
+    # gives it: a 3x2048x3072 canvas, a 4x4 plan bucketed to 32 tiles of 512x768
+    "name": "gather_chw@2048x3072",
+    "route": "cuda",
+    "source": "facedet_tpu_torch/csrc/tile_gather.cu",
+    "replaces": "facedet_tpu/ops/pallas/tile_gather.py:114",
+})
+ENHANCED = (2048, 3072)  # x2 of the production image
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bfloat16, NVIDIA data sheet
 SERVING_BATCH = 64
 SERVING_KW = dict(
     slice_height=SLICE, slice_width=SLICE, overlap_height_ratio=0.2, overlap_width_ratio=0.2,
@@ -174,6 +202,18 @@ def production_offsets():
     return offsets
 
 
+def enhance_first_offsets():
+    """(offsets bucketed to 32 tiles, slice h, slice w) of the enhance-first
+    pipeline's detection on its 2048x3072 canvas (fixed_grid: a 4x4 plan)."""
+    from facedet_tpu_torch.ops.tiler import (bucket_tile_count, compute_slice_grid, fixed_grid_slice_params,
+                                             pad_grid_offsets)
+
+    sh, sw, ov = fixed_grid_slice_params(*ENHANCED)
+    grid = compute_slice_grid(*ENHANCED, sh, sw, ov, ov)
+    offsets, _ = pad_grid_offsets(grid, bucket_tile_count(grid.num_tiles))
+    return offsets, sh, sw
+
+
 def kernel_phase(torch):
     """Returns {name: {max_abs_err, ms, plain_ms, bound_ms, bound_by, library_ms}}."""
     phase("3 kernels against their plain versions")
@@ -230,6 +270,38 @@ def kernel_phase(torch):
             del src
         print(f"B={b}: batched CHW gather bit-exact on {list(cases)} in uint8, float32, bfloat16")
         del batch
+
+    # the CHW gather's other shapes: the enhance-first canvas (odd x offsets:
+    # the shifted-load path), an odd width (rows that are not 16-byte
+    # aligned: 8-, 4-, 2- and 1-byte vectors by dtype), and the enhancer's
+    # halo windows on its padded image (not square, static offsets)
+    from facedet_tpu_torch.engine.enhancer import plan_tile_grid
+
+    ef_offs, ef_sh, ef_sw = enhance_first_offsets()
+    gh, gw, th, tw = plan_tile_grid(*CANVAS)
+    check(gh > 1 and gw > 1, f"the production image is planned as {gh}x{gw} windows")
+    chw_cases = {
+        "enhance_first": (ENHANCED, ef_sh, ef_sw, ef_offs),
+        "odd_width": ((333, 1531), 77, 637, np.array([[0, 0], [5, 3], [256, 894], [100, 1], [-9, 4000]], np.int32)),
+        "halo_windows": ((gh * th + 20, gw * tw + 20), th + 20, tw + 20,
+                         np.array([(i * th, j * tw) for i in range(gh) for j in range(gw)], np.int32)),
+    }
+    for case, ((ch_, cw_), sh_, sw_, offs) in chw_cases.items():
+        src8 = torch.randint(0, 256, (3, 3, ch_, cw_), generator=gen, device=dev, dtype=torch.uint8)
+        o = torch.from_numpy(offs).to(dev)
+        for dtype in (torch.uint8, torch.float32, torch.bfloat16):
+            batch = src8.to(dtype)
+            for name, src in (("gather_chw", batch[0]), ("gather_chw_batched", batch)):
+                got = tg.gather_tiles_chw(src, o, sh_, sw_)
+                torch.cuda.synchronize()
+                want = tg.gather_tiles_chw_ref(src, o, sh_, sw_)
+                err = float((got.float() - want.float()).abs().max())
+                max_err[name] = max(max_err[name], err)
+                check(torch.equal(got, want), f"{name} {dtype} {case}: differs from the plain version by {err}")
+            del batch
+        print(f"CHW gather bit-exact on {case}: canvas {ch_}x{cw_}, {len(offs)} windows of {sh_}x{sw_}, "
+              f"single and B=3, uint8, float32, bfloat16")
+        del src8
 
     # timing at the main path's shapes: the bfloat16 serving canvas, 6 tiles
     t = prod.shape[0]
@@ -297,6 +369,35 @@ def kernel_phase(torch):
         "max_abs_err": max_err["gather_chw_batched"], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "bytes", "library_ms": library_ms,
     }
+    del batch
+
+    # the single-image CHW gather at the enhance-first pipeline's shape
+    covered = np.zeros(ENHANCED, bool)
+    for y, x in ef_offs:
+        covered[y : y + ef_sh, x : x + ef_sw] = True
+    o = torch.from_numpy(ef_offs).to(dev)
+    ys = (o[:, 0, None] + torch.arange(ef_sh, device=dev)).long()
+    xs = (o[:, 1, None] + torch.arange(ef_sw, device=dev)).long()
+    for dtype in (torch.float32, torch.bfloat16):
+        chw = torch.randint(0, 256, (3, *ENHANCED), generator=gen, device=dev, dtype=torch.uint8).to(dtype)
+        elem = chw.element_size()
+        nbytes = (int(covered.sum()) + len(ef_offs) * ef_sh * ef_sw) * 3 * elem + ef_offs.nbytes
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        library = lambda: chw[ch[None, :, None, None], ys[:, None, :, None], xs[:, None, None, :]]  # noqa: E731, B023
+        check(torch.equal(library(), tg.gather_tiles_chw_ref(chw, o, ef_sh, ef_sw)),
+              "gather_chw@2048x3072: the indexing yardstick differs")
+        ms = event_ms(torch, lambda: tg.gather_tiles_chw(chw, o, ef_sh, ef_sw))  # noqa: B023
+        plain_ms = event_ms(torch, lambda: tg.gather_tiles_chw_ref(chw, o, ef_sh, ef_sw), busy=False)  # noqa: B023
+        library_ms = event_ms(torch, library)
+        print(f"gather_chw {str(dtype).split('.')[-1]} canvas {ENHANCED[0]}x{ENHANCED[1]} T={len(ef_offs)} "
+              f"S={ef_sh}x{ef_sw}: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB), "
+              f"plain {plain_ms:.4f} ms, indexing {library_ms:.4f} ms, {nbytes / ms / 1e6:.0f} GB/s")
+        if dtype == torch.bfloat16:  # the serving detector's canvas goes in the report
+            results["gather_chw@2048x3072"] = {
+                "max_abs_err": max_err["gather_chw"], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": "bytes", "library_ms": library_ms,
+            }
+        del chw
     return results
 
 
@@ -472,12 +573,12 @@ def main_path_phase(torch, models):
     return counts
 
 
-def _photo(seed, hw=CANVAS, n=12):
-    """A seeded synthetic photo: faces on a background whose DCT planes are
-    as sparse as a photograph's."""
+def _photo(seed, hw=CANVAS, n=12, size=(50, 140)):
+    """A seeded synthetic photo: ``n`` faces of ``size`` px on a background
+    whose DCT planes are as sparse as a photograph's."""
     from facedet_tpu_torch.utils.synth import natural_background, synthetic_faces
 
-    return synthetic_faces(*hw, seed=seed, n=n, background=natural_background(*hw, seed=seed))
+    return synthetic_faces(*hw, seed=seed, n=n, size=size, background=natural_background(*hw, seed=seed))
 
 
 def ingest_phase(torch, models):
@@ -725,6 +826,374 @@ def folder_phase(torch, models):
                   f"{len(res.object_prediction_list)} faces through dct420s")
 
 
+def rrdb_conv_flops(cfg, h: int, w: int) -> float:
+    """Multiply-adds times two of the RRDB net's convs on one h x w input:
+    every conv is 3x3, so 2 * 9 * C_in * C_out per output pixel. The body
+    (conv_first, num_block * 3 dense blocks of 5 convs, conv_body) runs at
+    the input's size divided by the pixel-unshuffle factor, conv_up1 at twice
+    that size, conv_up2, conv_hr and conv_last at four times."""
+    nf, gc = cfg.num_feat, cfg.num_grow_ch
+    m = {2: 2, 1: 4}.get(cfg.scale, 1)
+    px = (h // m) * (w // m)
+    dense = sum((nf + i * gc) * gc for i in range(4)) + (nf + 4 * gc) * nf
+    per_px = cfg.num_in_ch * m * m * nf + cfg.num_block * 3 * dense + nf * nf  # conv_first, body, conv_body
+    per_px += 4 * nf * nf + 16 * (2 * nf * nf + nf * cfg.num_out_ch)  # conv_up1; conv_up2, conv_hr, conv_last
+    return 2.0 * 9.0 * per_px * px
+
+
+def sr_plan_flops(enh, h: int, w: int):
+    """(plan, window, conv FLOPs) of one enhance_array call on an h x w
+    image: the windows of plan_tile_grid, halos included."""
+    from facedet_tpu_torch.engine.enhancer import plan_tile_grid
+
+    m = {2: 2, 1: 4}.get(enh.cfg.scale, 1)
+    h, w = h + (-h) % m, w + (-w) % m
+    gh, gw, th, tw = plan_tile_grid(h, w, enh.tile, enh.tile_pad, enh.max_tiles_per_batch)
+    win = (th + (2 * enh.tile_pad if gh > 1 else 0), tw + (2 * enh.tile_pad if gw > 1 else 0))
+    return (gh, gw, th, tw), win, gh * gw * rrdb_conv_flops(enh.cfg, *win)
+
+
+def _psnr(a, b) -> float:
+    import numpy as np
+
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10.0 * np.log10(1.0 / mse)
+
+
+def sr_fidelity_phase(torch):
+    """Returns the float32 enhancers {name: (cpu, cuda)} for later phases."""
+    phase("10 SR fidelity (float32, TF32 off): card against CPU, golden weights, 96x128")
+    import numpy as np
+
+    from facedet_tpu_torch import FaceEnhancer
+    from facedet_tpu_torch.engine.enhancer import _golden_ckpt_path
+
+    for name in ("RealESRGAN_x2plus", "RealESRGAN_x4plus", "RealESRGAN_x4cascade"):
+        # without its checkpoint a catalog name falls back to a random init, as in the JAX package
+        check(_golden_ckpt_path(name) is not None, f"the golden checkpoint of {name} is missing from the checkout")
+    image = _photo(400, hw=(96, 128), n=2, size=(20, 40))
+    x = image.astype(np.float32) / 255.0
+    pairs = {}
+    for name, scale in (("RealESRGAN_x2plus", 2), ("RealESRGAN_x4plus", 4)):
+        cpu = FaceEnhancer(name, outscale=scale, half=False, device="cpu")
+        card = FaceEnhancer(name, outscale=scale, half=False, device="cuda")
+        check(card.cfg.num_block == 23 and card.cfg.num_feat == 64 and card.cfg.num_grow_ch == 32 and
+              card.get_model_info()["num_params"] > 16_000_000, f"{name} is not the full-width net")
+        with np.load(_golden_ckpt_path(name)) as flat:
+            kernel = torch.from_numpy(flat["params/conv_last/kernel"].astype(np.float32)).permute(3, 2, 0, 1)
+        check(torch.equal(card.model.conv_last.weight.cpu(), kernel), f"{name} does not hold its golden weights")
+        t0 = time.perf_counter()
+        want = cpu.enhance_array(torch.from_numpy(x)).numpy()
+        cpu_s = time.perf_counter() - t0
+        got_t = card.enhance_array(torch.from_numpy(x))
+        check(got_t.is_cuda and got_t.dtype == torch.float32, f"{name}: enhance_array left the card")
+        got = got_t.cpu().numpy()
+        check(got.shape == want.shape == (96 * scale, 128 * scale, 3) and np.isfinite(got).all(),
+              f"{name}: output shape {got.shape}")
+        err = float(np.abs(got - want).max())
+        want8, _ = cpu.enhance_image(image)
+        got8, _ = card.enhance_image(image)
+        diff = np.abs(got8.astype(int) - want8.astype(int))
+        share = float((diff != 0).mean())
+        check(err <= 1e-3 and diff.max() <= 1 and share <= 1e-3,
+              f"{name}: card vs CPU max abs {err}, uint8 differences {share:.5f} of values, largest {diff.max()}")
+        check(float(got.std()) > 0.02, f"{name}: the output is flat")
+        print(f"{name} float32: card vs CPU max abs err {err:.3g} on [0, 1]; uint8 outputs differ on "
+              f"{share * 100:.4f}% of values by at most {diff.max()} level; CPU run {cpu_s:.1f} s")
+        pairs[name] = (cpu, card)
+    return pairs
+
+
+def sr_main_path_phase(torch, f32):
+    """FaceEnhancer.enhance_image at full width in bfloat16. Returns the
+    bfloat16 enhancers for the pipelines and the launch counts, set to 0 here."""
+    phase("11 SR main path: FaceEnhancer.enhance_image, bfloat16, golden weights (launch counts from 0)")
+    import numpy as np
+
+    from facedet_tpu_torch import FaceEnhancer
+
+    launches = _reset_launches()
+    served = {}
+    for name, scale, hw in (("RealESRGAN_x2plus", 2, CANVAS), ("RealESRGAN_x4plus", 4, (512, 768))):
+        enh = FaceEnhancer(name, outscale=scale)
+        check(enh.device.type == "cuda" and enh.cfg.dtype == "bfloat16" and enh.tile == 400,
+              f"{name}: default FaceEnhancer is {enh.device}, {enh.cfg.dtype}, tile {enh.tile}")
+        images = [_photo(410 + i, hw=hw) for i in range(7)]
+        plan, win, flops = sr_plan_flops(enh, *hw)
+        before = launches["gather_chw"]
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i, im in enumerate(images):
+            out, dt = enh.enhance_image(im)  # fetches the uint8 result: the call ends synchronised
+            check(out.shape == (hw[0] * scale, hw[1] * scale, 3) and out.dtype == np.uint8, f"{name}: output {out.shape}")
+            if i >= 2:
+                times.append(dt)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        windows = plan[0] * plan[1]
+        gathers = (launches["gather_chw"] - before) // len(images)
+        check(gathers == (1 if windows > 1 else 0), f"{name}: {gathers} window gathers per image for {windows} windows")
+        ms = statistics.median(times) * 1e3
+        print(f"{name} bfloat16 {hw[0]}x{hw[1]} -> x{scale}: plan {plan[0]}x{plan[1]} windows of {win[0]}x{win[1]} "
+              f"(tile {plan[2]}x{plan[3]}), chunks of {enh.max_tiles_per_batch}; median {ms:.2f} ms/image over "
+              f"{len(times)} images after 2 of warm-up (min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}); "
+              f"{flops / 1e12:.3f} TFLOP of convs, {flops / ms / 1e9:.1f} TFLOP/s achieved "
+              f"({100 * flops / ms / 1e9 / (BF16_FLOPS_PER_S / 1e12):.1f}% of the bfloat16 peak); "
+              f"peak memory {peak:.2f} GB; window gathers per image {gathers}")
+        _profile(torch, lambda: enh.enhance_image(images[2]), ms, n=1, label=f"{name} bfloat16")  # noqa: B023
+        # bfloat16 against float32 on the card, by PSNR
+        x = torch.from_numpy(images[2].astype(np.float32) / 255.0)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ref = f32[name][1].enhance_array(x).cpu().numpy()
+        f32_ms = (time.perf_counter() - t0) * 1e3
+        f32_peak = torch.cuda.max_memory_allocated() / 1e9
+        half = enh.enhance_array(x).cpu().numpy()
+        psnr = _psnr(half, ref)
+        check(np.isfinite(half).all() and psnr >= 30.0, f"{name}: bfloat16 against float32 PSNR {psnr:.2f} dB")
+        print(f"{name}: bfloat16 against float32 (TF32 off) on the card: PSNR {psnr:.2f} dB, max abs "
+              f"{float(np.abs(half - ref).max()):.4f}; the float32 run {f32_ms:.1f} ms, peak memory {f32_peak:.2f} GB")
+        served[name] = enh
+    # the cascade alias (the x2 net twice) and outscale 2 on the x4 net (lanczos3 down)
+    small = _photo(420, hw=(256, 384), n=4, size=(30, 70))
+    cascade = FaceEnhancer("RealESRGAN_x4cascade", outscale=4)
+    check(cascade.cascade and cascade.cfg.scale == 2, "the cascade alias did not resolve to the x2 net")
+    out, dt = cascade.enhance_image(small)
+    out, dt = cascade.enhance_image(small)
+    check(out.shape == (1024, 1536, 3) and float(out.std()) > 5, f"cascade output {out.shape}")
+    print(f"RealESRGAN_x4cascade 256x384 -> 1024x1536: {dt * 1e3:.1f} ms (second call)")
+    out, dt = served["RealESRGAN_x4plus"].enhance_image(small, outscale=2)
+    out, dt = served["RealESRGAN_x4plus"].enhance_image(small, outscale=2)
+    ref = f32["RealESRGAN_x4plus"][1].enhance_image(small, outscale=2)[0]
+    check(out.shape == (512, 768, 3), f"outscale 2 on the x4 net: {out.shape}")
+    psnr = _psnr(out / 255.0, ref / 255.0)
+    check(psnr >= 30.0, f"outscale 2 on the x4 net: bfloat16 against float32 PSNR {psnr:.2f} dB")
+    print(f"RealESRGAN_x4plus outscale=2 (lanczos3 down) 256x384 -> 512x768: {dt * 1e3:.1f} ms (second call), "
+          f"PSNR against float32 {psnr:.2f} dB")
+    return served, launches
+
+
+def pipeline_v2_phase(torch, models, f32, served):
+    """enhance_first_pipeline; returns the gather launches on the enhanced canvas."""
+    phase("12 pipeline v2: enhance_first_pipeline (x2, fixed_grid) with yolo11n")
+    import numpy as np
+
+    from facedet_tpu_torch.engine import pipelines, predict
+    from facedet_tpu_torch.ops.kernels import tile_gather as tg
+
+    # fidelity, float32: the card against the CPU on 256x384
+    small = _photo(430, hw=(256, 384), n=4, size=(30, 70))
+    cpu_enh, card_enh = f32["RealESRGAN_x2plus"]
+    want = pipelines.enhance_first_pipeline(small, models["cpu"], cpu_enh)
+    got = pipelines.enhance_first_pipeline(small, models["cuda"], card_enh)
+    check(len(want.object_prediction_list) > 0, "v2 on the CPU found nothing on the small image")
+    _compare(got.detections.to_numpy(), want.detections.to_numpy(), "enhance_first_pipeline float32, 256x384")
+    diff = np.abs(got.enhanced_image.astype(int) - want.enhanced_image.astype(int))
+    check(got.enhanced_image.dtype == np.uint8 and got.enhanced_image.shape == (512, 768, 3) and diff.max() <= 1,
+          f"v2 enhanced image: {got.enhanced_image.dtype} {got.enhanced_image.shape}, max diff {diff.max()}")
+
+    # the main path: 1024x1536, bfloat16 enhancer and detector. Recording
+    # wrappers show where the enhanced image lies when detection takes it
+    # and which canvas the gather is launched on.
+    enh, det = served["RealESRGAN_x2plus"], models["serving"]
+    seen = {"inputs": [], "canvases": []}
+    real_sliced, real_gather = pipelines.get_sliced_prediction, predict.gather_tiles_chw
+
+    def sliced(image, *a, **k):
+        seen["inputs"].append((type(image).__name__, getattr(image, "device", None), tuple(image.shape),
+                               getattr(image, "dtype", None)))
+        return real_sliced(image, *a, **k)
+
+    def gather(canvas, offsets, sh, sw):
+        before = tg.LAUNCHES["gather_chw"]
+        out = real_gather(canvas, offsets, sh, sw)
+        seen["canvases"].append((tuple(canvas.shape), canvas.device.type, len(offsets), sh, sw,
+                                 tg.LAUNCHES["gather_chw"] - before))
+        return out
+
+    pipelines.get_sliced_prediction, predict.gather_tiles_chw = sliced, gather
+    try:
+        images = [_photo(440 + i) for i in range(7)]
+        enhance_ms, total_ms = [], []
+        for i, im in enumerate(images):
+            t0 = time.perf_counter()
+            res = pipelines.enhance_first_pipeline(im, det, enh)
+            dt = (time.perf_counter() - t0) * 1e3
+            if i >= 2:
+                total_ms.append(dt)
+                enhance_ms.append(res.durations_in_seconds["enhance"] * 1e3)
+    finally:
+        pipelines.get_sliced_prediction, predict.gather_tiles_chw = real_sliced, real_gather
+    offs, sh, sw = enhance_first_offsets()
+    for kind, device, shape, dtype in seen["inputs"]:
+        check(kind == "Tensor" and device.type == "cuda" and shape == (*ENHANCED, 3) and dtype == torch.float32,
+              f"detection took the enhanced image as {kind} on {device}, {shape}, {dtype}")
+    want_canvas = ((3, *ENHANCED), "cuda", len(offs), sh, sw, 1)
+    check(len(seen["canvases"]) == len(images) and all(c == want_canvas for c in seen["canvases"]),
+          f"the gather ran on {seen['canvases'][:2]}, expected {want_canvas} once per image")
+    n_launches = sum(c[-1] for c in seen["canvases"])
+    det_np = res.detections.to_numpy()
+    check(len(res.object_prediction_list) > 0 and np.isfinite(det_np["boxes"]).all(), "v2 found nothing at 1024x1536")
+    x, y = det_np["boxes"][:, 0::2], det_np["boxes"][:, 1::2]
+    check((x >= 0).all() and (x <= CANVAS[1]).all() and (y >= 0).all() and (y <= CANVAS[0]).all(),
+          "v2 boxes are not in the original image's coordinates")
+    check(res.image.shape == (*CANVAS, 3) and res.enhanced_image.shape == (*ENHANCED, 3) and
+          res.enhanced_image.dtype == np.uint8, f"v2 images: {res.image.shape}, {res.enhanced_image.shape}")
+    print(f"the enhanced {ENHANCED[0]}x{ENHANCED[1]} tensor went into get_sliced_prediction on the card (float32, "
+          f"never on the host before the uint8 display fetch); gather_chw launched {n_launches} times on a "
+          f"3x{ENHANCED[0]}x{ENHANCED[1]} canvas, {len(offs)} tiles of {sh}x{sw}")
+    e, t = statistics.median(enhance_ms), statistics.median(total_ms)
+    print(f"enhance_first_pipeline bfloat16 1024x1536: median {t:.2f} ms/image over {len(total_ms)} images after 2 "
+          f"of warm-up (min {min(total_ms):.2f}, max {max(total_ms):.2f}): enhance {e:.2f} ms, detection, mapping "
+          f"and the display fetch {t - e:.2f} ms; {len(res.object_prediction_list)} faces on the last image")
+    return n_launches
+
+
+def pipeline_v1_phase(torch, models, f32, served):
+    phase("13 pipeline v1 and the fetch wire")
+    import numpy as np
+    from PIL import Image
+
+    from facedet_tpu_torch.core.detections import Detections
+    from facedet_tpu_torch.engine import pipelines
+    from facedet_tpu_torch.utils.viz import save_image
+
+    enh = served["RealESRGAN_x4plus"]
+    image = _photo(450)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        crops_dir = os.path.join(tmp, "crops")
+        t0 = time.perf_counter()
+        result, stats = pipelines.detect_first_pipeline(image, models["serving"], enhancer=enh, crops_dir=crops_dir)
+        dt = time.perf_counter() - t0
+        n = len(result.object_prediction_list)
+        check(n > 0, "v1 found nothing")
+        # enhance_face_crops_batch swallows a crop's exception: a broken
+        # enhancer shows only here
+        check(stats["failed"] == 0 and stats["enhanced"] == stats["total"] == n,
+              f"v1 enhanced {stats['enhanced']} of {stats['total']} crops for {n} faces, failed {stats['failed_files']}")
+        for name in sorted(os.listdir(crops_dir)):
+            a = Image.open(os.path.join(crops_dir, name)).size
+            b = Image.open(os.path.join(crops_dir + "_enhanced", name)).size
+            check(b == (a[0] * 4, a[1] * 4), f"crop {name}: {a} -> {b}")
+        print(f"detect_first_pipeline 1024x1536: {n} faces, {stats['enhanced']} crops enhanced x4, failed 0; "
+              f"{dt * 1e3:.1f} ms in all, {result.durations_in_seconds['enhance'] * 1e3:.1f} ms of crops and enhancement")
+
+        # detect -> crop -> enhance on the device, for the detected faces
+        det = result.detections
+        keep = det.valid.nonzero().flatten()
+        faces = Detections(*(getattr(det, f)[keep] for f in ("boxes", "scores", "classes", "kpts", "valid")))
+        x = torch.from_numpy(image).cuda().float() / 255.0
+        crops = enh.enhance_detections(x, faces, crop_size=128)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        crops = enh.enhance_detections(x, faces, crop_size=128)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        check(crops.shape == (n, 512, 512, 3) and crops.is_cuda and bool(torch.isfinite(crops).all()) and
+              float(crops.std()) > 0.02, f"enhance_detections: {tuple(crops.shape)}")
+        print(f"enhance_detections crop_size=128: {n} faces -> {tuple(crops.shape)} on the card in {dt:.1f} ms")
+
+        # the DCT fetch pipeline, float32: the card against the CPU
+        crop = _photo(451, hw=(90, 84), n=1, size=(25, 38))
+        src = os.path.join(tmp, "crop.png")
+        save_image(src, crop)
+        cpu_enh, card_enh = f32["RealESRGAN_x4plus"]
+        for sparse in (False, True):
+            outs = []
+            for e in (cpu_enh, card_enh):
+                xb, _, _ = e._load_bucketed(src)
+                pipeline, qy, qc, thw = e._enhance_dct_pipeline(xb.shape[0], xb.shape[1], 4.0, 95, sparse=sparse)
+                outs.append([t.cpu().numpy() for t in pipeline(xb)])
+            want, got = outs
+            names = ("y_dc", "uv_dc", "bitmap", "vals", "nnz", "n_clipped") if sparse else \
+                ("y_dc", "y_ac", "uv_dc", "uv_ac", "n_clipped")
+            report = []
+            for name, g, w in zip(names, got, want):
+                check(g.shape == w.shape and g.dtype == w.dtype, f"fetch planes {name}: {g.shape} {g.dtype}")
+                if name in ("bitmap", "vals"):
+                    continue  # one coefficient more or less shifts every later value: compared unpacked below
+                d = np.abs(g.astype(np.int64) - w.astype(np.int64))
+                report.append(f"{name} {int((d != 0).sum())}/{d.size} differ (max {int(d.max()) if d.size else 0})")
+            if sparse:
+                from facedet_tpu_torch.ops.jpeg_dct import unpack_sparse_bitmap_np
+
+                n_ac = got[2].size * 8
+                cap = got[3].shape[0]
+                check(int(got[4]) <= cap, f"sparse fetch: nnz {int(got[4])} above the cap {cap}")
+                d = np.abs(unpack_sparse_bitmap_np(got[2], got[3], n_ac).astype(int) -
+                           unpack_sparse_bitmap_np(want[2], want[3], n_ac).astype(int))
+                check(d.max() <= 1 and (d != 0).mean() <= 1e-3, f"sparse AC: {(d != 0).sum()} differ, max {d.max()}")
+                report.append(f"unpacked AC {int((d != 0).sum())}/{d.size} differ (max {int(d.max())}); "
+                              f"nnz {int(got[4])} of cap {cap}")
+            else:
+                for g, w in zip(got[:4], want[:4]):
+                    d = np.abs(g.astype(int) - w.astype(int))
+                    check(d.max() <= 1 and (d != 0).mean() <= 1e-3, f"dense planes: {(d != 0).sum()} differ, max {d.max()}")
+            check(int(got[-1]) == int(want[-1]), f"n_clipped {int(got[-1])} on the card, {int(want[-1])} on the CPU")
+            print(f"_enhance_dct_pipeline {'sparse' if sparse else 'dense'}, x4 of a 90x84 crop in its 96x96 bucket, "
+                  f"quality 95, card vs CPU: " + "; ".join(report) + f"; n_clipped {int(got[-1])}")
+
+        # enhance_to_jpeg on the serving enhancer: which branch runs, and the bytes of each fetch format
+        rgb_bytes = 90 * 4 * 84 * 4 * 3
+        for sparse in (False, True):
+            dst = os.path.join(tmp, f"crop_{'sparse' if sparse else 'dense'}.jpg")
+            check(enh.enhance_to_jpeg(src, dst, sparse=sparse), "enhance_to_jpeg returned False")
+            info = enh.last_fetch
+            check(Image.open(dst).size == (84 * 4, 90 * 4), f"enhance_to_jpeg wrote {Image.open(dst).size}")
+            counted = "" if "natively" in info["branch"] else \
+                " (not the native coefficient writer: this run is no measurement of the coefficient fetch)"
+            print(f"enhance_to_jpeg sparse={sparse}: branch: {info['branch']}{counted}; {info}; "
+                  f"uint8 RGB fetch of the cropped result would move {rgb_bytes} bytes")
+
+
+def cli_phase():
+    phase("14 CLIs as subprocesses: app_v2, app_v1, app_enhancer --fetch dct420s, app_yolo_full")
+    from facedet_tpu_torch.utils.viz import save_image
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        inp, crops = os.path.join(tmp, "in"), os.path.join(tmp, "crops")
+        os.makedirs(inp)
+        os.makedirs(crops)
+        for s in (41, 42):
+            save_image(os.path.join(inp, f"img{s}.png"), _photo(s, hw=(256, 384), n=4, size=(30, 70)))
+            save_image(os.path.join(crops, f"face{s}.jpg"), _photo(s, hw=(70, 60), n=1, size=(20, 28)))
+        det = ["--model-path", CKPT, "--scale", "n", "--device", "cuda"]
+        runs = {
+            "app_v2": (["--input", inp, "--output", os.path.join(tmp, "v2"), "--outscale", "2", *det],
+                       [os.path.join("v2", f"img{s}", f"img{s}_{k}.jpg") for s in (41, 42) for k in ("detections", "enhanced")]),
+            "app_v1": (["--input", inp, "--output", os.path.join(tmp, "v1"), "--outscale", "4", *det],
+                       [os.path.join("v1", f"img{s}", f) for s in (41, 42)
+                        for f in (f"img{s}_detections.jpg", "enhancement_summary.txt")]),
+            "app_enhancer": (["--input", crops, "--output", os.path.join(tmp, "enh"), "--model", "RealESRGAN_x2plus",
+                              "--outscale", "2", "--fetch", "dct420s", "--device", "cuda"],
+                             [os.path.join("enh", f) for f in ("face41.jpg", "face42.jpg", "enhancement_summary.txt")]),
+            "app_yolo_full": (["--input", inp, "--output", os.path.join(tmp, "full"), *det],
+                              [os.path.join("full", f"img{s}", f) for s in (41, 42)
+                               for f in (f"img{s}_enhanced_detections.jpg", f"img{s}_summary.txt")]),
+        }
+        t0 = time.perf_counter()
+        procs = {
+            app: subprocess.Popen([sys.executable, "-m", f"facedet_tpu_torch.apps.{app}", *args], cwd=REPO,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for app, (args, _) in runs.items()
+        }
+        try:
+            for app, proc in procs.items():
+                out, _ = proc.communicate(timeout=600)
+                check(proc.returncode == 0, f"{app} exited with {proc.returncode}:\n{out[-2000:]}")
+                for f in runs[app][1]:
+                    check(os.path.exists(os.path.join(tmp, f)), f"{app} wrote no {f}")
+                last = [line for line in out.strip().splitlines() if line][-1]
+                print(f"{app}: exit 0, {len(runs[app][1])} output files present; last line: {last}")
+                if app == "app_enhancer":
+                    check("Enhanced: 2" in out and "Failed: 0" in out, f"app_enhancer's summary:\n{out[-1000:]}")
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        print(f"four CLIs, started together: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -750,6 +1219,13 @@ def main() -> int:
         batch_phase(torch, models)
         counts.update(serving_phase(torch, models))
         folder_phase(torch, models)
+        f32 = sr_fidelity_phase(torch)
+        served, enh_launches = sr_main_path_phase(torch, f32)
+        counts["gather_chw@2048x3072"] = pipeline_v2_phase(torch, models, f32, served)
+        pipeline_v1_phase(torch, models, f32, served)
+        cli_phase()
+        print(f"launches on the enhancement main path: {dict(enh_launches)} (window gathers of tiled_sr and "
+              f"the detections of pipelines v1 and v2; the v2 canvas: {counts['gather_chw@2048x3072']})")
         for k in KERNELS:
             check(counts[k["name"]] > 0, f"{k['name']} was not launched on its main path")
         check("jax" not in sys.modules and "facedet_tpu" not in sys.modules, "jax or facedet_tpu was imported")

@@ -1,13 +1,16 @@
 """PyTorch / CUDA port of facedet_tpu: SAHI sliced face detection with
-YOLOv11-pose on an NVIDIA H100.
+YOLOv11-pose and Real-ESRGAN super-resolution on an NVIDIA H100.
 
 The package imports torch, numpy and PIL, never jax or facedet_tpu. Its
 entry points run on the CUDA device unless the caller passes
 ``device="cpu"``. The serving path is ``predict_stream_batched`` over
-``input_format="dct420s"`` (engine/predict.py).
+``input_format="dct420s"`` (engine/predict.py); enhancement is
+``FaceEnhancer`` (engine/enhancer.py) and the two composed pipelines of
+engine/pipelines.py.
 """
 from facedet_tpu_torch.core.detections import Detections
 from facedet_tpu_torch.engine.detector import DetectionModel, YoloV11PoseDetectionModel
+from facedet_tpu_torch.engine.enhancer import FaceEnhancer, enhance_face_crops_batch
 from facedet_tpu_torch.engine.predict import (
     get_prediction,
     get_sliced_prediction,
@@ -21,6 +24,8 @@ __all__ = [
     "Detections",
     "DetectionModel",
     "YoloV11PoseDetectionModel",
+    "FaceEnhancer",
+    "enhance_face_crops_batch",
     "get_prediction",
     "get_sliced_prediction",
     "get_sliced_prediction_batch",

@@ -1,12 +1,13 @@
 """Shared CLI plumbing for the port's apps (counterpart of
 facedet_tpu/apps/common.py). Only the yolov11 family is ported; the other
-families exit with "not yet ported"."""
+families exit with "not yet ported". ``build_detector`` and
+``build_enhancer`` take the torch device, ``cuda`` by default."""
 from __future__ import annotations
 
 import argparse
 import os
 
-from facedet_tpu_torch.utils.config import DetectorConfig
+from facedet_tpu_torch.utils.config import DetectorConfig, EnhancerConfig
 
 
 def build_detector(cfg: DetectorConfig, device: str = "cuda"):
@@ -23,6 +24,20 @@ def build_detector(cfg: DetectorConfig, device: str = "cuda"):
             device=device,
         )
     raise SystemExit(f"error: detector family {cfg.family!r} is not yet ported to facedet_tpu_torch")
+
+
+def build_enhancer(cfg: EnhancerConfig, device: str = "cuda"):
+    from facedet_tpu_torch.engine.enhancer import FaceEnhancer
+
+    return FaceEnhancer(
+        model_name=cfg.model_name,
+        model_path=cfg.model_path,
+        outscale=cfg.outscale,
+        tile=cfg.tile,
+        tile_pad=cfg.tile_pad,
+        half=cfg.half,
+        device=device,
+    )
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:

@@ -293,10 +293,12 @@ def _display_image(img) -> np.ndarray:
     if isinstance(img, tuple):
         return yuv420_to_rgb_np(img[0], img[1])
     if isinstance(img, torch.Tensor):
-        arr = img.cpu()
+        arr = img
         if arr.dtype != torch.uint8:
+            # quantised where the tensor lies: the same values as on the
+            # host, and a quarter of a float32 image's bytes to fetch
             arr = (arr.float() * 255.0).round().clamp(0, 255).to(torch.uint8)
-        return arr.numpy()
+        return arr.cpu().numpy()
     return img
 
 

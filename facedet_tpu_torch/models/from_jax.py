@@ -7,6 +7,14 @@ facedet_tpu/engine/detector.load_params_npz does). ``from_jax_variables``
 maps the nested tree onto a state dict: the torch modules carry the flax
 names, so ``params/backbone/stem/conv/kernel`` becomes
 ``backbone.stem.conv.weight``.
+
+RRDB checkpoints (``load_rrdb_npz``) hold only ``kernel`` and ``bias``
+leaves. The x2 and x1 nets pixel-unshuffle their input, and the flax net
+orders the unshuffled channels ``(fy*f + fx)*C + c`` where
+``F.pixel_unshuffle`` orders them ``c*f*f + fy*f + fx``. The port keeps the
+flax order in its own unshuffle (models/rrdbnet.pixel_unshuffle_nchw), so
+``conv_first``'s input channels are carried across unpermuted, like every
+other kernel.
 """
 from __future__ import annotations
 
@@ -14,7 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["load_params_npz", "from_jax_variables", "load_jax_variables"]
+__all__ = ["load_params_npz", "from_jax_variables", "load_jax_variables", "load_rrdb_npz"]
 
 # flax leaf name -> torch parameter/buffer name
 _LEAVES = {
@@ -82,3 +90,13 @@ def load_jax_variables(module: nn.Module, tree: dict) -> None:
     for k in counters:
         state[k] = torch.zeros_like(own[k])
     module.load_state_dict(state, strict=True)
+
+
+def load_rrdb_npz(module: nn.Module, path: str) -> None:
+    """Load an RRDBNet ``.npz`` checkpoint of the JAX package into the
+    port's ``RRDBNet``; raises when the tree does not fit the module (another
+    depth, width or scale)."""
+    tree = load_params_npz(path)
+    if set(tree) != {"params"}:
+        raise KeyError(f"an RRDB checkpoint holds only 'params', got {sorted(tree)}")
+    load_jax_variables(module, tree)

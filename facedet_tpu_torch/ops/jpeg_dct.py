@@ -1,11 +1,14 @@
-"""Quantized-DCT image ingest: the ``dct420`` and ``dct420s`` input formats.
+"""Quantized-DCT image transport: the ``dct420`` and ``dct420s`` input
+formats, and the same coefficients as a fetch format for enhanced images.
 
-Counterpart of facedet_tpu/ops/jpeg_dct.py (its ingest half; the fetch half,
-``encode_dct420_device``, ``pack_sparse_bitmap_device``,
-``unpack_sparse_bitmap_np`` and ``wire_planes_to_dct_image``, comes with the
-enhancement slice). The host uploads the *quantized 8x8 DCT coefficients*,
-the representation JPEG files store, and dequantisation and the inverse DCT
-run on the device: one [N,64] @ [64,64] float32 product per plane.
+Counterpart of facedet_tpu/ops/jpeg_dct.py. Ingest: the host uploads the
+*quantized 8x8 DCT coefficients*, the representation JPEG files store, and
+dequantisation and the inverse DCT run on the device: one [N,64] @ [64,64]
+float32 product per plane. Fetch (``encode_dct420_device``,
+``pack_sparse_bitmap_device`` and their host inverses): a super-resolved
+image is transformed and quantised on the device and comes back as
+coefficient planes, dense or as a bitmap and packed values, which the host
+entropy-codes into a .jpg without touching a pixel.
 
 Layout per image (``DctImage``):
   y_dc  [Hb, Wb]        int16: DC (exact; its range exceeds int8)
@@ -35,7 +38,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from facedet_tpu_torch.ops.color import rgb_to_yuv420
+from facedet_tpu_torch.ops.color import _FWD, rgb_to_yuv420
 from facedet_tpu_torch.utils.native import load_native
 
 __all__ = [
@@ -44,6 +47,10 @@ __all__ = [
     "encode_dct420",
     "decode_dct420_to_yuv_f32",
     "decode_dct420_np",
+    "encode_dct420_device",
+    "wire_planes_to_dct_image",
+    "pack_sparse_bitmap_device",
+    "unpack_sparse_bitmap_np",
     "dct420_bytes",
     "sparse_cap_bucket",
     "sparse_nnz_entries",
@@ -219,6 +226,90 @@ def decode_dct420_np(img: DctImage) -> tuple[np.ndarray, np.ndarray]:
     u = plane(img.uv_dc[..., 0], img.uv_ac[..., 0, :].copy(), img.qc)
     v = plane(img.uv_dc[..., 1], img.uv_ac[..., 1, :].copy(), img.qc)
     return y, np.stack([u, v], axis=-1)
+
+
+def encode_dct420_device(rgb: torch.Tensor, qy, qc, wide_ac: bool = False):
+    """Forward transform on the device, the mirror of
+    :func:`decode_dct420_to_yuv_f32`, for FETCHING large images (a x4
+    Real-ESRGAN output holds 16x the input pixels) as quantized coefficients
+    instead of raw RGB.
+
+    ``rgb`` float [H, W, 3] in [0, 1], H and W multiples of 16; ``qy`` /
+    ``qc`` float32 [64] quant tables (tensors or arrays). Returns wire-layout
+    planes (y_dc int16 [Hb, Wb], y_ac int8 [64, Hb, Wb], uv_dc int16
+    [Hb2, Wb2, 2], uv_ac int8 [2, 64, Hb2, Wb2]) plus ``n_clipped`` (int32
+    scalar tensor: how many AC coefficients exceeded the wire range and were
+    clipped). Same lossy-ness as a quality-``q`` JPEG save when
+    ``n_clipped == 0``; a nonzero count means extreme-contrast blocks were
+    truncated, and callers should fall back to a pixel fetch
+    (engine/enhancer.py::enhance_to_jpeg does).
+
+    ``wide_ac=True`` emits int16 AC planes clipped at JPEG baseline
+    Huffman's magnitude ceiling of 1023 instead of int8 at 127: sharpened SR
+    outputs overflow int8 in some blocks.
+
+    Everything runs in float32 whatever the input dtype, and the colour and
+    DCT products are exact float32 products (no TF32): a quantised
+    coefficient near a rounding boundary would otherwise flip."""
+    dev = rgb.device
+    f32 = torch.float32
+    qy = torch.as_tensor(qy, dtype=f32, device=dev)
+    qc = torch.as_tensor(qc, dtype=f32, device=dev)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        x = rgb.to(f32) * 255.0
+        ycc = torch.matmul(x, torch.from_numpy(_FWD).to(dev).t())
+        y = ycc[..., 0]
+        h, w = y.shape
+        cb = ycc[..., 1].reshape(h // 2, 2, w // 2, 2).mean(dim=(1, 3)) + 128.0
+        cr = ycc[..., 2].reshape(h // 2, 2, w // 2, 2).mean(dim=(1, 3)) + 128.0
+        c = torch.from_numpy(_C).to(dev)
+        ac_limit, ac_dtype = (1023.0, torch.int16) if wide_ac else (127.0, torch.int8)
+
+        def plane(p, q):
+            hb, wb = p.shape[0] // 8, p.shape[1] // 8
+            blocks = p.reshape(hb, 8, wb, 8).permute(0, 2, 1, 3) - 128.0
+            coef = torch.matmul(torch.matmul(c, blocks), c.t())  # C X C^T per block
+            cq = torch.round(coef.reshape(hb, wb, 64) / q)
+            dc = cq[..., 0].clamp(-(1 << 15), (1 << 15) - 1).to(torch.int16)
+            clipped = (cq[..., 1:].abs() > ac_limit).sum(dtype=torch.int32)
+            ac = cq.clamp(-ac_limit, ac_limit).to(ac_dtype)
+            ac[..., 0] = 0
+            return dc, ac.movedim(-1, 0).contiguous(), clipped  # wire layout
+
+        y_dc, y_ac, y_cl = plane(y, qy)
+        u_dc, u_ac, u_cl = plane(cb, qc)
+        v_dc, v_ac, v_cl = plane(cr, qc)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    return (
+        y_dc,
+        y_ac,
+        torch.stack([u_dc, v_dc], dim=2),
+        torch.stack([u_ac, v_ac], dim=0),
+        y_cl + u_cl + v_cl,
+    )
+
+
+def wire_planes_to_dct_image(planes, qy, qc, hw) -> DctImage:
+    """Host-side: wire-layout fetched planes (tensors or arrays) ->
+    :class:`DctImage` (block-major numpy), for decode_dct420_np or the
+    native JPEG writer."""
+    y_dc, y_ac, uv_dc, uv_ac = (_to_numpy(p) for p in planes)
+    return DctImage(
+        y_dc=y_dc,
+        y_ac=np.moveaxis(y_ac, 0, -1),
+        uv_dc=uv_dc,
+        uv_ac=np.moveaxis(uv_ac, (0, 1), (2, 3)),
+        qy=np.asarray(_to_numpy(qy), np.float32),
+        qc=np.asarray(_to_numpy(qc), np.float32),
+        hw=tuple(hw),
+    )
+
+
+def _to_numpy(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 def dct420_bytes(h: int, w: int) -> int:
@@ -486,3 +577,40 @@ def pack_sparse_ac_batch(
     if ret != 0:  # cannot happen with a cap sized from the count pass
         raise RuntimeError("native sparse pack overflowed its capacity bucket")
     return deltas, vals
+
+
+# --- sparse-bitmap FETCH wire (SR coefficient download) ---------------------
+#
+# The fetch direction packs on the DEVICE: a bit-pack and a rank scatter run
+# beside the SR forward at device-memory speed, and the HOST pays the bitmap
+# rank expansion, which is cheap for it.
+
+
+def pack_sparse_bitmap_device(flat: torch.Tensor, cap: int):
+    """Device pack for the FETCH direction (sparse download of
+    device-encoded SR coefficients): flat int [n] (n % 8 == 0) ->
+    (bitmap uint8 [n/8] big-endian bits, vals [cap] of flat's dtype,
+    nnz int32 scalar tensor). When nnz > cap the overflow values are dropped
+    into a dump slot, and nnz still counts them: callers MUST check it and
+    fall back to a dense fetch rather than use truncated values.
+
+    The scatter's writes collide only in the dump slot, so their order does
+    not change the result. Ranks are int32: they count at most n."""
+    mask = flat != 0
+    ranks = torch.cumsum(mask, dim=0, dtype=torch.int32) - 1
+    nnz = ranks[-1] + 1 if mask.shape[0] > 0 else torch.zeros((), dtype=torch.int32, device=flat.device)
+    pos = torch.where(mask & (ranks < cap), ranks, torch.full_like(ranks, cap))  # cap = dump slot
+    vals = torch.zeros(cap + 1, dtype=flat.dtype, device=flat.device).scatter_(0, pos.long(), flat)[:cap]
+    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32, device=flat.device)
+    bitmap = (mask.reshape(-1, 8).to(torch.int32) * weights).sum(dim=1)
+    return bitmap.to(torch.uint8), vals, nnz.to(torch.int32)
+
+
+def unpack_sparse_bitmap_np(bitmap, vals, n: int) -> np.ndarray:
+    """Host inverse of the sparse-bitmap fetch wire -> flat [n] of vals'
+    dtype (int8 compact wire or int16 wide wire)."""
+    vals = _to_numpy(vals)
+    bits = np.unpackbits(np.asarray(_to_numpy(bitmap), np.uint8))[:n].astype(bool)
+    flat = np.zeros(n, vals.dtype)
+    flat[bits] = vals[: int(bits.sum())]
+    return flat

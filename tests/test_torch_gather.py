@@ -179,3 +179,40 @@ def test_no_plain_fallback_off_the_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
         tg.gather_tiles_chw(img.permute(2, 0, 1)[None], offs, 4, 4)
     assert tg.LAUNCHES == before and set(before) == {"gather_hwc", "gather_chw", "gather_chw_batched"}
+
+
+def test_enhance_first_grid_offsets_and_windows():
+    """The enhance-first pipeline detects on a 2048x3072 canvas: a 4x4 plan
+    of 25 tiles of 512x768 whose x offsets are odd multiples of the element
+    size (615, 1845), bucketed to 32 tiles. Each tile equals its slice."""
+    sh, sw, ov = tiler.fixed_grid_slice_params(2048, 3072)
+    grid = tiler.compute_slice_grid(2048, 3072, sh, sw, ov, ov)
+    jgrid = jax_compute_slice_grid(2048, 3072, sh, sw, ov, ov)
+    np.testing.assert_array_equal(grid.offsets, jgrid.offsets)
+    assert (sh, sw) == (512, 768) and grid.num_tiles == 25
+    assert sorted(set(grid.offsets[:, 0])) == [0, 410, 820, 1230, 1536]
+    assert sorted(set(grid.offsets[:, 1])) == [0, 615, 1230, 1845, 2304]
+    offsets, valid = tiler.pad_grid_offsets(grid, tiler.bucket_tile_count(grid.num_tiles))
+    assert offsets.shape == (32, 2) and valid.sum() == 25
+    img = torch.from_numpy(np.random.default_rng(8).integers(0, 255, (3, 2048, 3072), np.uint8))
+    got = tg.gather_tiles_chw(img, torch.from_numpy(offsets), sh, sw)
+    assert got.shape == (32, 3, 512, 768)
+    for t, (y, x) in enumerate(offsets):
+        assert torch.equal(got[t], img[:, y : y + sh, x : x + sw])
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_chw_windows_that_are_not_square_match_dynamic_slice(dtype):
+    """The enhancer gathers halo windows of any shape from a padded CHW
+    image (facedet_tpu/engine/enhancer.py:125-130 is a vmap of
+    ``lax.dynamic_slice``): static offsets, odd sizes."""
+    np_dt, t_dt = DTYPES[dtype]
+    arr = np.random.default_rng(9).integers(0, 256, (3, 53, 71)).astype(np_dt)
+    offs = [(0, 0), (0, 24), (16, 0), (16, 24), (30, 38)]
+    want = np.stack([
+        _jnp(jax.lax.dynamic_slice(jnp.asarray(arr), (0, y, x), (3, 23, 33))) for y, x in offs
+    ])
+    img = torch.from_numpy(arr.astype(np.float32)).to(t_dt)
+    got = tg.gather_tiles_chw(img, offs, 23, 33)
+    assert got.shape == (5, 3, 23, 33) and got.dtype == t_dt
+    np.testing.assert_array_equal(_np(got), want)

@@ -400,3 +400,98 @@ def test_native_jpeg_writer_roundtrip(tmp_path):
     rb, cb = -(-100 // 8), -(-130 // 8)
     np.testing.assert_array_equal(d.y_dc[:rb, :cb], d2.y_dc[:rb, :cb])
     np.testing.assert_array_equal(d.y_ac[:rb, :cb], d2.y_ac[:rb, :cb])
+
+
+# --- the fetch half: device-side encode and the sparse-bitmap wire ----------
+#
+# ``encode_dct420_device`` quantises: ``round(coef / q)`` flips where the
+# float32 products of the two frameworks (summed in another order) fall on
+# different sides of a rounding boundary. So the planes agree except for a
+# stated share of coefficients (at most 2e-4 of them here), each by one
+# level; ``n_clipped`` counts coefficients far beyond the limit and is equal.
+# The bitmap pack and its inverses move integers and are exact.
+
+
+def _sharp_image(h, w, seed=0):
+    """Float RGB in [0, 1] with hard edges, so that AC coefficients leave
+    the int8 range at quality 95."""
+    rng = np.random.default_rng(seed)
+    base = natural_image(h, w, seed).astype(np.float32) / 255.0
+    mask = np.kron(rng.integers(0, 2, (h // 4, w // 4)), np.ones((4, 4)))[..., None].astype(np.float32)
+    return np.clip(base * 0.3 + mask * 0.9 * rng.uniform(0.5, 1.0, (1, 1, 3)).astype(np.float32), 0, 1).astype(np.float32)
+
+
+def _plane_mismatch(got, want):
+    """(share of differing entries, largest difference)."""
+    diff = np.abs(np.asarray(got).astype(np.int64) - np.asarray(want).astype(np.int64))
+    return float((diff != 0).mean()), int(diff.max())
+
+
+@pytest.mark.parametrize("wide_ac", [False, True])
+@pytest.mark.parametrize("quality", [90, 95])
+def test_encode_dct420_device_matches_jax(wide_ac, quality):
+    rgb = _sharp_image(48, 64, seed=quality)
+    qy, qc = tdct.quality_tables(quality)
+    want = jdct.encode_dct420_device(jnp.asarray(rgb), jnp.asarray(qy), jnp.asarray(qc), wide_ac=wide_ac)
+    got = tdct.encode_dct420_device(torch.from_numpy(rgb), qy, qc, wide_ac=wide_ac)
+    names = ("y_dc", "y_ac", "uv_dc", "uv_ac")
+    for name, g, w in zip(names, got, want):
+        w = np.asarray(w)
+        assert tuple(g.shape) == w.shape and str(g.dtype).split(".")[-1] == str(w.dtype), name
+        share, worst = _plane_mismatch(g.numpy(), w)
+        assert share <= 2e-4 and worst <= 1, (name, share, worst)
+    assert got[1].dtype == (torch.int16 if wide_ac else torch.int8)
+    assert got[1].shape == (64, 6, 8) and got[3].shape == (2, 64, 3, 4)
+    assert int(got[4]) == int(want[4]) and got[4].dtype == torch.int32
+    if not wide_ac:
+        assert int(got[4]) > 0  # the narrow wire clips this image: the caller must see it
+    else:
+        assert int(got[4]) == 0 and int(got[1].abs().max()) > 127  # and the wide wire carries it
+    assert int(got[1][0].abs().max()) == 0 and int(got[3][:, 0].abs().max()) == 0  # slot 0 holds no AC
+
+
+def test_encode_dct420_device_inverts_through_the_ingest_decode():
+    """Encode on the device, carry the planes to a DctImage on the host,
+    decode: the image comes back to JPEG-quality-90 fidelity."""
+    rgb = natural_image(32, 48, seed=3).astype(np.float32) / 255.0
+    qy, qc = tdct.quality_tables(90)
+    *planes, n_clipped = tdct.encode_dct420_device(torch.from_numpy(rgb), qy, qc, wide_ac=True)
+    assert int(n_clipped) == 0
+    d = tdct.wire_planes_to_dct_image(planes, qy, qc, (30, 47))
+    want = jdct.wire_planes_to_dct_image([p.numpy() for p in planes], qy, qc, (30, 47))
+    for f in PLANES:
+        np.testing.assert_array_equal(getattr(d, f), getattr(want, f))
+    assert d.hw == (30, 47) and d.y_ac.shape == (4, 6, 64) and d.uv_ac.shape == (2, 3, 2, 64)
+    back = tpredict._display_image(d)
+    assert back.shape == (30, 47, 3)
+    assert np.abs(back.astype(np.float32) / 255.0 - rgb[:30, :47]).mean() < 0.02
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int16"])
+@pytest.mark.parametrize("density,cap", [(0.05, 256), (0.3, 64), (0.0, 8), (1.0, 4096)])
+def test_pack_sparse_bitmap_matches_jax_and_inverts(dtype, density, cap):
+    """Below the cap the host inverse rebuilds the input; above it the true
+    nnz still comes back, so the caller can tell."""
+    rng = np.random.default_rng(int(density * 100) + cap)
+    n = 4096
+    lim = 127 if dtype == "int8" else 1023
+    flat = (rng.integers(1, lim + 1, n) * rng.choice([-1, 1], n) * (rng.uniform(size=n) < density)).astype(dtype)
+    want = jdct.pack_sparse_bitmap_device(jnp.asarray(flat), cap)
+    got = tdct.pack_sparse_bitmap_device(torch.from_numpy(flat), cap)
+    nnz = int(np.count_nonzero(flat))
+    assert int(got[2]) == int(want[2]) == nnz and got[2].dtype == torch.int32
+    assert got[0].dtype == torch.uint8 and got[0].shape == (n // 8,)
+    assert got[1].shape == (cap,) and str(got[1].dtype).split(".")[-1] == dtype
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[0].numpy(), np.packbits(flat != 0))  # big-endian bits
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    if nnz <= cap:
+        np.testing.assert_array_equal(tdct.unpack_sparse_bitmap_np(got[0], got[1], n), flat)
+        np.testing.assert_array_equal(jdct.unpack_sparse_bitmap_np(got[0].numpy(), got[1].numpy(), n), flat)
+    else:
+        np.testing.assert_array_equal(got[1].numpy(), flat[flat != 0][:cap])
+
+
+def test_pack_sparse_bitmap_of_an_empty_plane():
+    bitmap, vals, nnz = tdct.pack_sparse_bitmap_device(torch.zeros(0, dtype=torch.int16), 8)
+    assert bitmap.shape == (0,) and vals.shape == (8,) and int(nnz) == 0
