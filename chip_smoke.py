@@ -29,8 +29,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 8. serving main path at full width, with the launch counts set to 0 first:
    predict_stream_batched over dct420s input, batch 64, window 3, bfloat16,
    raw results: every image answered, in order, finite and inside the
-   image; images per second (median of 3 passes), the same stream with rgb
-   input, predict_stream per image, a profile of one batch and the host
+   image; images per second (median of 3 passes of 3 batches), the same
+   stream with rgb input, predict_stream per image, a profile of one batch and the host
    time of the staging;
 9. folder run and CLI: predict() over a folder with ingest="dct420s", the CLI with
    --ingest yuv420, and one JPEG through the native coefficient reader where
@@ -50,8 +50,28 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    and sparse on the card against the CPU, enhance_to_jpeg's branch and
    the bytes each fetch format moves;
 14. the app_v2, app_v1, app_enhancer and app_yolo_full CLIs as
-   subprocesses; the counts are read after them;
-15. report: a ``kernels`` JSON line, the nvidia-smi line, and last the
+   subprocesses; the counts are read after them. Phase 19's processes start
+   with them and are collected right after them, before phase 15;
+15. SCRFD fidelity: the golden scrfd_2.5g in float32 (TF32 off) through
+   get_sliced_prediction, the card against the CPU; a batch of 4 through
+   get_sliced_prediction_batch against 4 single calls; the checkpoint and
+   one loaded leaf held against the file;
+16. SCRFD main path at full width, with the launch counts set to 0 first:
+   bfloat16, ms per image, a profile by kernel group, FaceAnalysis.get;
+17. RT-DETR: rtdetr-l (hidden 256, 300 queries, 6 decoder layers) from the
+   seeded init. float32, the card against the CPU on two 640x640 tiles: the
+   query selection's top_idx, then logits and boxes of the last layer given
+   the same selection. bfloat16 main path, with the launch counts set to 0
+   first: ms per image, a profile with the deformable-attention sampling as
+   a group of its own, the 8,400-token selection timed alone, peak memory;
+18. ONNX: the golden SCRFD exported in insightface's nine-output layout
+   at batch 1 (run as a loop over tiles) through ScrfdDetectionModel against the .npz route, the golden yolo11n exported
+   with the ultralytics head through OnnxDetectionModel against
+   YoloV11PoseDetectionModel; ms per image and kernel launches of each;
+19. the other families' CLIs as subprocesses: app_yolo_sahi with --family
+   scrfd, rtdetr and fake, app_retinaface, inference_direct,
+   app_yolo_inference;
+20. report: the wall seconds of every phase, a ``kernels`` JSON line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 It imports nothing of jax or facedet_tpu and needs the checkout: run alone
@@ -61,6 +81,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -69,6 +90,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(REPO, "facedet_tpu", "eval", "assets", "yolo11n_golden.npz")
+SCRFD_CKPT = os.path.join(REPO, "facedet_tpu", "eval", "assets", "scrfd_2_5g_golden.npz")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 SLICE = 640
 CANVAS = (1024, 1536)  # the production grid: 6 tiles of 640 at overlap 0.2
@@ -80,6 +102,9 @@ BOX_ATOL, SCORE_ATOL, KPT_ATOL = 0.05, 1e-3, 0.1
 # device kernels by what they do, matched on the lower-cased kernel name in order
 PROFILE_GROUPS = [
     ("tile gather", ("tile_gather",)),
+    ("deformable-attention sampling (grid_sample)", ("grid_sampler",)),
+    ("layer norm and group norm", ("layer_norm", "layernorm", "group_norm", "rowwisemoments")),
+    ("softmax", ("softmax",)),
     ("gather, scatter and scan (row takes, sparse unpack)", ("scan", "scatter")),
     ("layout transposes inside cuDNN", ("nchwtonhwc", "nhwctonchw")),
     ("batch norm", ("bn_fw", "batch_norm")),
@@ -130,6 +155,14 @@ SERVING_KW = dict(
 )
 
 
+# the single-image calls: the standard pass, GREEDYNMM/IOS 0.5, results on the host
+SLICED_KW = dict(
+    slice_height=SLICE, slice_width=SLICE, overlap_height_ratio=0.2, overlap_width_ratio=0.2,
+    perform_standard_pred=True, postprocess_type="GREEDYNMM", postprocess_match_metric="IOS",
+    postprocess_match_threshold=0.5,
+)
+
+
 class SmokeFailure(Exception):
     pass
 
@@ -139,8 +172,21 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
-def phase(name):
-    print(f"== {name}", flush=True)
+PHASE_SECONDS: dict[str, float] = {}
+_OPEN_PHASE: list = []
+
+
+def phase(name=None):
+    """Open phase ``name``; the phase open before it (or, with no name, the
+    last one) is closed and its wall seconds are printed and kept."""
+    now = time.perf_counter()
+    if _OPEN_PHASE:
+        prev, t0 = _OPEN_PHASE.pop()
+        PHASE_SECONDS[prev.split(" ", 1)[0]] = round(now - t0, 1)
+        print(f"-- phase {prev.split(' ', 1)[0]} took {now - t0:.1f} s", flush=True)
+    if name is not None:
+        _OPEN_PHASE.append((name, now))
+        print(f"== {name}", flush=True)
 
 
 def nvidia_smi_line() -> str:
@@ -401,12 +447,13 @@ def kernel_phase(torch):
     return results
 
 
-def _compare(a, b, what):
-    """Detections dicts (to_numpy) of the card and the CPU."""
+def _compare(a, b, what, sides="card vs CPU"):
+    """Detections dicts (to_numpy) of two runs: the card and the CPU unless
+    ``sides`` names others."""
     import numpy as np
 
     check(a["boxes"].shape == b["boxes"].shape,
-          f"{what}: {len(a['boxes'])} detections on the card, {len(b['boxes'])} on the CPU")
+          f"{what}: {len(a['boxes'])} detections against {len(b['boxes'])} ({sides})")
     if len(a["boxes"]):
         err = {
             "boxes": float(np.abs(a["boxes"] - b["boxes"]).max()),
@@ -414,8 +461,8 @@ def _compare(a, b, what):
             "kpts": float(np.abs(a["kpts"][..., :2] - b["kpts"][..., :2]).max()),
         }
         check(err["boxes"] <= BOX_ATOL and err["scores"] <= SCORE_ATOL and err["kpts"] <= KPT_ATOL,
-              f"{what}: card vs CPU {err}")
-        print(f"{what}: {len(a['boxes'])} detections, card vs CPU max errors {err}")
+              f"{what}: {sides} {err}")
+        print(f"{what}: {len(a['boxes'])} detections, {sides} max errors {err}")
 
 
 def _serve(model, images, kw, label):
@@ -505,11 +552,7 @@ def main_path_phase(torch, models):
     from facedet_tpu_torch.utils.viz import save_image
 
     image = synthetic_faces(*CANVAS, seed=0, n=12)
-    kw = dict(
-        slice_height=SLICE, slice_width=SLICE, overlap_height_ratio=0.2, overlap_width_ratio=0.2,
-        perform_standard_pred=True, postprocess_type="GREEDYNMM", postprocess_match_metric="IOS",
-        postprocess_match_threshold=0.5,
-    )
+    kw = SLICED_KW
     want = get_sliced_prediction(image, models["cpu"], **kw).detections.to_numpy()
     want_single = get_prediction(image, models["cpu"]).object_prediction_list
 
@@ -609,14 +652,26 @@ def ingest_phase(torch, models):
     print(f"dct420s canvas equals the dct420 canvas bit for bit: {tuple(canvases['dct420'].shape)} float32")
 
 
+_CODED: dict = {}
+
+
+def _coded_photo(seed):
+    """``_photo(seed)`` and its DCT coefficients, encoded once for the phases that share it."""
+    from facedet_tpu_torch.ops.jpeg_dct import encode_dct420
+
+    if seed not in _CODED:
+        image = _photo(seed)
+        _CODED[seed] = (image, encode_dct420(image))
+    return _CODED[seed]
+
+
 def batch_phase(torch, models):
     phase("7 batch of 8 (float32) against 8 single calls")
     from facedet_tpu_torch import get_sliced_prediction, get_sliced_prediction_batch
-    from facedet_tpu_torch.ops.jpeg_dct import encode_dct420
     from facedet_tpu_torch.ops.kernels import tile_gather as tg
 
     kw = {k: v for k, v in SERVING_KW.items() if k != "fetch_capacity"}
-    coded = [encode_dct420(_photo(200 + s)) for s in range(8)]
+    coded = [_coded_photo(300 + s)[1] for s in range(8)]  # the serving phase's first eight
     before = dict(tg.LAUNCHES)
     batch = get_sliced_prediction_batch(coded, models["cuda"], input_format="dct420s", **kw)
     batched_launches = tg.LAUNCHES["gather_chw_batched"] - before["gather_chw_batched"]
@@ -650,15 +705,14 @@ def serving_phase(torch, models):
     from facedet_tpu_torch import get_sliced_prediction, get_sliced_prediction_batch, predict_stream
     from facedet_tpu_torch import predict_stream_batched
     from facedet_tpu_torch.engine import predict as P
-    from facedet_tpu_torch.ops.jpeg_dct import encode_dct420
 
     phase("8 serving main path: predict_stream_batched, dct420s, batch 64, window 3, bfloat16")
     model = models["serving"]
-    n_distinct, n_batches = 16, 5
-    rgb = [_photo(300 + s) for s in range(n_distinct)]
+    n_distinct, n_batches = 16, 3
     t0 = time.perf_counter()
-    coded = [encode_dct420(im) for im in rgb]
-    print(f"encoded {n_distinct} distinct 1024x1536 images once in {time.perf_counter() - t0:.2f} s (not timed below)")
+    rgb, coded = map(list, zip(*(_coded_photo(300 + s) for s in range(n_distinct))))
+    print(f"encoded {n_distinct} distinct 1024x1536 images once (8 of them in phase 7), the rest in "
+          f"{time.perf_counter() - t0:.2f} s (not timed below)")
     nnz = sum(int(np.count_nonzero(d.y_ac)) + int(np.count_nonzero(d.uv_ac)) for d in coded)
     print(f"AC density of the inputs: {nnz / sum(d.y_ac.size + d.uv_ac.size for d in coded):.4f}")
     # what each distinct image holds, from the single-image path of the same model
@@ -723,11 +777,11 @@ def serving_phase(torch, models):
     print(f"serving dct420s: {statistics.median(passes):.2f} images/s median of 3 passes of {n_batches} batches "
           f"(min {min(passes):.2f}, max {max(passes):.2f})")
 
-    rgb_passes = [SERVING_BATCH * n_batches / stream(rgb, "rgb", n_batches)[0] for _ in range(4)][1:]
-    print(f"serving rgb (same stream, same images): {statistics.median(rgb_passes):.2f} images/s median of 3 passes "
+    rgb_passes = [SERVING_BATCH * n_batches / stream(rgb, "rgb", n_batches)[0] for _ in range(3)][1:]
+    print(f"serving rgb (same stream, same images): {statistics.median(rgb_passes):.2f} images/s median of 2 passes "
           f"after one of warm-up (min {min(rgb_passes):.2f}, max {max(rgb_passes):.2f})")
 
-    n_single = 40
+    n_single = 24
     t_first = None
     for k, _ in enumerate(predict_stream((coded[i % n_distinct] for i in range(n_single)), model, window=3, raw=True,
                                          input_format="dct420s", **SERVING_KW)):
@@ -1145,53 +1199,337 @@ def pipeline_v1_phase(torch, models, f32, served):
                   f"uint8 RGB fetch of the cropped result would move {rgb_bytes} bytes")
 
 
+def _start_clis(runs, extra=()):
+    """{key: Popen} of ``python -m facedet_tpu_torch.apps.<app> <args>`` for runs {key: (app, args, files)}."""
+    return {
+        key: subprocess.Popen([sys.executable, "-m", f"facedet_tpu_torch.apps.{app}", *args, *extra], cwd=REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for key, (app, args, _) in runs.items()
+    }
+
+
+def _collect_clis(procs, runs, tmp) -> dict:
+    """Waits for each process: exit code 0 and its files present. Returns each one's output."""
+    outs = {}
+    for key, proc in procs.items():
+        out, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"{key} exited with {proc.returncode}:\n{out[-2000:]}")
+        for f in runs[key][2]:
+            check(os.path.exists(os.path.join(tmp, f)), f"{key} wrote no {f}")
+        last = [line for line in out.strip().splitlines() if line][-1]
+        print(f"{key}: exit 0, {len(runs[key][2])} output files present; last line: {last}")
+        outs[key] = out
+    return outs
+
+
 def cli_phase():
-    phase("14 CLIs as subprocesses: app_v2, app_v1, app_enhancer --fetch dct420s, app_yolo_full")
+    """Phases 14 and 19. All ten processes start together, so that the six
+    of phase 19 load torch while the four of phase 14 run; nothing else runs
+    on the card meanwhile, and no timed phase overlaps them."""
     from facedet_tpu_torch.utils.viz import save_image
 
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
-        inp, crops = os.path.join(tmp, "in"), os.path.join(tmp, "crops")
-        os.makedirs(inp)
-        os.makedirs(crops)
+        inp, crops, inp2 = os.path.join(tmp, "in"), os.path.join(tmp, "crops"), os.path.join(tmp, "in2")
+        for d in (inp, crops, inp2):
+            os.makedirs(d)
         for s in (41, 42):
             save_image(os.path.join(inp, f"img{s}.png"), _photo(s, hw=(256, 384), n=4, size=(30, 70)))
             save_image(os.path.join(crops, f"face{s}.jpg"), _photo(s, hw=(70, 60), n=1, size=(20, 28)))
-        det = ["--model-path", CKPT, "--scale", "n", "--device", "cuda"]
+        for s in (61, 62):
+            save_image(os.path.join(inp2, f"img{s}.png"), _photo(s, hw=(512, 768), n=5, size=(40, 110)))
+        det = ["--model-path", CKPT, "--scale", "n"]
         runs = {
-            "app_v2": (["--input", inp, "--output", os.path.join(tmp, "v2"), "--outscale", "2", *det],
+            "app_v2": ("app_v2", ["--input", inp, "--output", os.path.join(tmp, "v2"), "--outscale", "2", *det],
                        [os.path.join("v2", f"img{s}", f"img{s}_{k}.jpg") for s in (41, 42) for k in ("detections", "enhanced")]),
-            "app_v1": (["--input", inp, "--output", os.path.join(tmp, "v1"), "--outscale", "4", *det],
+            "app_v1": ("app_v1", ["--input", inp, "--output", os.path.join(tmp, "v1"), "--outscale", "4", *det],
                        [os.path.join("v1", f"img{s}", f) for s in (41, 42)
                         for f in (f"img{s}_detections.jpg", "enhancement_summary.txt")]),
-            "app_enhancer": (["--input", crops, "--output", os.path.join(tmp, "enh"), "--model", "RealESRGAN_x2plus",
-                              "--outscale", "2", "--fetch", "dct420s", "--device", "cuda"],
+            "app_enhancer": ("app_enhancer", ["--input", crops, "--output", os.path.join(tmp, "enh"), "--model",
+                                              "RealESRGAN_x2plus", "--outscale", "2", "--fetch", "dct420s"],
                              [os.path.join("enh", f) for f in ("face41.jpg", "face42.jpg", "enhancement_summary.txt")]),
-            "app_yolo_full": (["--input", inp, "--output", os.path.join(tmp, "full"), *det],
+            "app_yolo_full": ("app_yolo_full", ["--input", inp, "--output", os.path.join(tmp, "full"), *det],
                               [os.path.join("full", f"img{s}", f) for s in (41, 42)
                                for f in (f"img{s}_enhanced_detections.jpg", f"img{s}_summary.txt")]),
         }
-        t0 = time.perf_counter()
-        procs = {
-            app: subprocess.Popen([sys.executable, "-m", f"facedet_tpu_torch.apps.{app}", *args], cwd=REPO,
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for app, (args, _) in runs.items()
+        one = os.path.join(inp2, "img61.png")
+        sahi_files = lambda d: [os.path.join(d, f"img{s}", f"img{s}_{k}") for s in (61, 62)  # noqa: E731
+                                for k in ("detections.jpg", "summary.txt")]
+        family_runs = {
+            "scrfd": ("app_yolo_sahi", ["--input", inp2, "--output", os.path.join(tmp, "scrfd"), "--family", "scrfd",
+                                        "--model-path", SCRFD_CKPT], sahi_files("scrfd")),
+            # random weights: a high threshold keeps the number of drawings and crops small
+            "rtdetr": ("app_yolo_sahi", ["--input", inp2, "--output", os.path.join(tmp, "rtdetr"), "--family", "rtdetr",
+                                         "--conf", "0.9"], sahi_files("rtdetr")),
+            "fake": ("app_yolo_sahi", ["--input", inp2, "--output", os.path.join(tmp, "fake"), "--family", "fake"],
+                     sahi_files("fake")),
+            "app_retinaface": ("app_retinaface", ["--input", inp2, "--output", os.path.join(tmp, "rf"), "--model-path",
+                                                  SCRFD_CKPT, "--det-thresh", "0.3"],
+                               [os.path.join("rf", f"img{s}_retinaface.jpg") for s in (61, 62)]),
+            "inference_direct": ("inference_direct", ["--input", one, *det], []),
+            "app_yolo_inference": ("app_yolo_inference", ["--input", one, "--output", os.path.join(tmp, "inf"), *det,
+                                                          "--conf", "0.3"],
+                                   [os.path.join("inf", f) for f in ("img61_detections.jpg", "img61_summary.txt")]),
         }
+        phase("14 CLIs as subprocesses: app_v2, app_v1, app_enhancer --fetch dct420s, app_yolo_full")
+        t0 = time.perf_counter()
+        procs = _start_clis({**runs, **family_runs}, extra=("--device", "cuda"))
         try:
-            for app, proc in procs.items():
-                out, _ = proc.communicate(timeout=600)
-                check(proc.returncode == 0, f"{app} exited with {proc.returncode}:\n{out[-2000:]}")
-                for f in runs[app][1]:
-                    check(os.path.exists(os.path.join(tmp, f)), f"{app} wrote no {f}")
-                last = [line for line in out.strip().splitlines() if line][-1]
-                print(f"{app}: exit 0, {len(runs[app][1])} output files present; last line: {last}")
-                if app == "app_enhancer":
-                    check("Enhanced: 2" in out and "Failed: 0" in out, f"app_enhancer's summary:\n{out[-1000:]}")
+            outs = _collect_clis({k: procs[k] for k in runs}, runs, tmp)
+            check("Enhanced: 2" in outs["app_enhancer"] and "Failed: 0" in outs["app_enhancer"],
+                  f"app_enhancer's summary:\n{outs['app_enhancer'][-1000:]}")
+            phase("19 the other families' CLIs as subprocesses (started with phase 14's)")
+            outs = _collect_clis({k: procs[k] for k in family_runs}, family_runs, tmp)
+            for key in ("scrfd", "fake", "inference_direct", "app_yolo_inference"):
+                last = [line for line in outs[key].strip().splitlines() if line][-1]
+                check(" 0 faces" not in last, f"{key} found nothing: {last}")
+            per_image = [int(m) for m in re.findall(r"^img6[12]: (\d+) faces$", outs["app_retinaface"], re.M)]
+            check(len(per_image) == 2 and sum(per_image) > 0,
+                  f"app_retinaface found {per_image} faces:\n{outs['app_retinaface'][-1000:]}")
+            print(f"app_retinaface: faces per image {per_image}")
         finally:
             for proc in procs.values():
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
-        print(f"four CLIs, started together: {time.perf_counter() - t0:.1f} s")
+        print(f"ten CLI runs, started together: {time.perf_counter() - t0:.1f} s")
+
+
+def _kernel_launches(torch, run) -> int:
+    """Device kernels launched by one ``run()``, counted by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def scrfd_fidelity_phase(torch):
+    """Returns the float32 SCRFD pair {"cpu", "cuda"}."""
+    phase("15 SCRFD fidelity (float32, TF32 off): golden scrfd_2.5g, card against CPU")
+    import numpy as np
+
+    from facedet_tpu_torch import get_sliced_prediction, get_sliced_prediction_batch
+    from facedet_tpu_torch.engine.scrfd_wrapper import ScrfdDetectionModel
+    from facedet_tpu_torch.ops.kernels import tile_gather as tg
+
+    check(os.path.exists(SCRFD_CKPT), f"missing checkpoint {SCRFD_CKPT}")
+    kw = dict(model_path=SCRFD_CKPT, variant="scrfd_2.5g", dtype="float32", image_size=SLICE, confidence_threshold=0.3)
+    pair = {"cpu": ScrfdDetectionModel(device="cpu", **kw), "cuda": ScrfdDetectionModel(device="cuda", **kw)}
+    with np.load(SCRFD_CKPT) as flat:
+        check(len(flat.files) == 203, f"the SCRFD checkpoint holds {len(flat.files)} leaves")
+        kernel = torch.from_numpy(flat["params/head/l2_kps/kernel"].astype(np.float32)).permute(3, 2, 0, 1)
+    check(torch.equal(pair["cuda"].model.head.l2_kps.weight.cpu(), kernel), "SCRFD does not hold its golden weights")
+    image = _photo(500)
+    want = get_sliced_prediction(image, pair["cpu"], **SLICED_KW).detections.to_numpy()
+    before = tg.LAUNCHES["gather_chw"]
+    got = get_sliced_prediction(image, pair["cuda"], **SLICED_KW)
+    check(tg.LAUNCHES["gather_chw"] == before + 1, "SCRFD's get_sliced_prediction did not launch the CHW gather once")
+    check(len(want["boxes"]) > 0, "the golden SCRFD found nothing on the synthetic image")
+    _compare(got.detections.to_numpy(), want, "SCRFD get_sliced_prediction float32")
+
+    images = [_photo(501 + i) for i in range(4)]
+    before = dict(tg.LAUNCHES)
+    batch = get_sliced_prediction_batch(images, pair["cuda"], **SLICED_KW)
+    batched = tg.LAUNCHES["gather_chw_batched"] - before["gather_chw_batched"]
+    check(batched == 1 and tg.LAUNCHES["gather_chw"] == before["gather_chw"],
+          f"SCRFD's batch of 4 launched the batched gather {batched} times")
+    for i, (res, im) in enumerate(zip(batch, images)):
+        single = get_sliced_prediction(im, pair["cuda"], **SLICED_KW)
+        _compare(res.detections.to_numpy(), single.detections.to_numpy(), f"SCRFD batch image {i}", "batch vs single call")
+    return pair
+
+
+def scrfd_main_path_phase(torch):
+    """Returns the launch counts of this main path."""
+    phase("16 SCRFD main path: get_sliced_prediction, bfloat16, golden scrfd_2.5g (launch counts from 0)")
+    from facedet_tpu_torch import get_sliced_prediction, get_sliced_prediction_batch
+    from facedet_tpu_torch.engine.scrfd_wrapper import FaceAnalysis, ScrfdDetectionModel
+
+    launches = _reset_launches()
+    model = ScrfdDetectionModel(model_path=SCRFD_CKPT, image_size=SLICE, confidence_threshold=0.3)
+    check(model.device.type == "cuda" and model.dtype == "bfloat16" and
+          model.model.backbone.stem.weight.dtype == torch.bfloat16 and
+          model.model.head.l0_gn0.weight.dtype == torch.float32,
+          f"default ScrfdDetectionModel is {model.device}, {model.dtype}")
+    images = [_photo(510 + i) for i in range(12)]
+    times, found = _serve(model, images, SLICED_KW, "SCRFD bfloat16")
+    ms = statistics.median(times)
+    print(f"SCRFD get_sliced_prediction bfloat16, 1024x1536, 6+1 tiles of 640: median {ms:.3f} ms/image over "
+          f"{len(times)} images (min {min(times):.3f}, max {max(times):.3f}); detections per image {found}")
+    check(launches["gather_chw"] == len(images), f"{launches['gather_chw']} CHW gathers for {len(images)} images")
+    _profile(torch, lambda: get_sliced_prediction(images[0], model, **SLICED_KW), ms, label="SCRFD bfloat16")
+    batch = get_sliced_prediction_batch(images[:4], model, **SLICED_KW)
+    check(len(batch) == 4 and launches["gather_chw_batched"] == 1, "SCRFD's bfloat16 batch of 4")
+    counts = {k: launches[k] for k in ("gather_chw", "gather_chw_batched")}
+    print(f"launches on the SCRFD main path: {counts}")
+
+    fa = FaceAnalysis(name="scrfd_2.5g", model_path=SCRFD_CKPT)
+    fa.prepare(det_size=(0, 0), det_thresh=0.3)
+    check(fa.det_size == (640, 640) and fa._model.device.type == "cuda", f"FaceAnalysis.prepare: {fa.det_size}")
+    faces = fa.get(images[0])
+    check(len(faces) > 0 and all((f.bbox >= 0).all() and f.bbox[2] <= CANVAS[1] and f.bbox[3] <= CANVAS[0] and
+                                 f.kps.shape == (5, 2) for f in faces), "FaceAnalysis.get")
+    print(f"FaceAnalysis.get (one letterboxed pass at 640): {len(faces)} faces, best score {faces[0].det_score:.3f}")
+    return counts
+
+
+def rtdetr_phase(torch):
+    """Returns the launch counts of RT-DETR's main path."""
+    phase("17 RT-DETR: rtdetr-l, seeded init; float32 card against CPU, then the bfloat16 main path")
+    import numpy as np
+
+    from facedet_tpu_torch import get_sliced_prediction
+    from facedet_tpu_torch.engine.rtdetr_wrapper import RtDetrDetectionModel
+    from facedet_tpu_torch.ops.tiler import gather_tiles
+
+    kw = dict(variant="rtdetr-l", seed=7, image_size=SLICE, confidence_threshold=0.5)
+    cpu = RtDetrDetectionModel(dtype="float32", device="cpu", **kw)
+    card = RtDetrDetectionModel(dtype="float32", device="cuda", **kw)
+    cfg = card.cfg
+    check((cfg.hidden_dim, cfg.num_queries, cfg.num_decoder_layers, cfg.num_heads, cfg.num_points) == (256, 300, 6, 8, 4),
+          f"rtdetr-l is {cfg}")
+    n_params = sum(p.numel() for p in card.model.parameters())
+    for (name, a), (_, b) in zip(cpu.model.state_dict().items(), card.model.state_dict().items()):
+        check(torch.equal(a, b.cpu()), f"the seeded init differs between the CPU and the card at {name}")
+    image = _photo(520)
+    canvas = torch.from_numpy(image).float() / 255.0
+    offsets = torch.from_numpy(production_offsets()[:2].copy())
+    tiles = gather_tiles(canvas, offsets, SLICE, SLICE).permute(0, 3, 1, 2).contiguous()  # [2,3,640,640] on the host
+    from facedet_tpu_torch.engine.detector import _exact_float32
+
+    with torch.inference_mode(), _exact_float32(True):
+        t0 = time.perf_counter()
+        want = cpu.model.forward_nchw(tiles)
+        cpu_s = time.perf_counter() - t0
+        got = card.model.forward_nchw(tiles.cuda())
+        n_tokens = want["enc_logits"].shape[1]
+        check(n_tokens == 8400 and tuple(got["top_idx"].shape) == (2, 300), f"{n_tokens} encoder tokens")
+        score_w = want["enc_logits"].float().max(-1).values
+        score_g = got["enc_logits"].float().max(-1).values.cpu()
+        enc_err = float((score_w - score_g).abs().max())
+        same = torch.equal(got["top_idx"].cpu(), want["top_idx"])
+        ordered = torch.sort(score_w, dim=1, descending=True).values
+        gap_at_cut = float((ordered[:, 299] - ordered[:, 300]).min())
+        if not same:
+            # where the selections differ, the scores at fault lie closer than the card and the CPU agree
+            sel_w, sel_g = want["top_idx"], got["top_idx"].cpu()
+            moved = sel_w != sel_g
+            closest = float((torch.gather(score_w, 1, sel_w)[moved] - torch.gather(score_w, 1, sel_g)[moved]).abs().max())
+            check(closest <= max(1e-5, 4 * enc_err),
+                  f"the query selection differs by tokens whose scores lie {closest} apart (encoder scores agree to {enc_err})")
+            print(f"query selection: top_idx differs at {int(moved.sum())} of 600 places, between tokens whose "
+                  f"scores lie at most {closest:.3g} apart; gap at the cut {gap_at_cut:.3g}")
+        print(f"encoder scores of 2x{n_tokens} tokens: card vs CPU max err {enc_err:.3g}; top_idx equal: {same}; "
+              f"score gap at the cut (300th against 301st) {gap_at_cut:.3g}; CPU forward {cpu_s:.1f} s")
+        given = card.model.forward_nchw(tiles.cuda(), top_idx=want["top_idx"].cuda())
+    logit_err = float((given["logits"][-1].cpu() - want["logits"][-1]).abs().max())
+    box_err = float((given["boxes"][-1].cpu() - want["boxes"][-1]).abs().max())
+    check(logit_err <= 1e-3 and box_err <= 1e-3 and bool(torch.isfinite(given["logits"][-1]).all()),
+          f"RT-DETR last layer, same selection: logits {logit_err}, boxes {box_err}")
+    print(f"last decoder layer given the CPU's selection: logits max err {logit_err:.3g}, boxes (normalised cxcywh) "
+          f"max err {box_err:.3g}; {n_params / 1e6:.1f} M parameters")
+    det_w = cpu.tile_forward_nchw(tiles, 0.5)
+    det_g = card.tile_forward_nchw(tiles.cuda(), 0.5)
+    check(tuple(det_g.boxes.shape) == (2, 300, 4) and not bool(det_g.kpts.any()) and
+          abs(int(det_g.valid.sum()) - int(det_w.valid.sum())) <= 6,
+          f"tile_forward: {int(det_g.valid.sum())} valid on the card, {int(det_w.valid.sum())} on the CPU")
+    del card, cpu
+
+    print("launch counts set to 0; the bfloat16 main path starts")
+    launches = _reset_launches()
+    model = RtDetrDetectionModel(**kw)
+    check(model.device.type == "cuda" and model.model.enc_score.weight.dtype == torch.bfloat16 and
+          model.model.enc_norm.weight.dtype == torch.float32, "default RtDetrDetectionModel is not bfloat16 on the card")
+    images = [_photo(521 + i) for i in range(12)]
+    torch.cuda.reset_peak_memory_stats()
+    times, found = _serve(model, images, SLICED_KW, "RT-DETR bfloat16")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms = statistics.median(times)
+    print(f"RT-DETR get_sliced_prediction bfloat16, 1024x1536, 6+1 tiles of 640 (7 x 8400 encoder tokens, 7 x 300 "
+          f"queries): median {ms:.3f} ms/image over {len(times)} images (min {min(times):.3f}, max {max(times):.3f}); "
+          f"peak memory {peak:.2f} GB; detections per image {found} (random weights: the count says nothing)")
+    check(launches["gather_chw"] == len(images), f"{launches['gather_chw']} CHW gathers for {len(images)} images")
+    _profile(torch, lambda: get_sliced_prediction(images[0], model, **SLICED_KW), ms, label="RT-DETR bfloat16")
+    # where the wall time goes: the detector alone on the 8-tile batch
+    batch = torch.rand(8, 3, SLICE, SLICE, device="cuda").to(torch.bfloat16)
+    walls = []
+    for i in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.tile_forward_nchw(batch, 0.5)
+        torch.cuda.synchronize()
+        if i >= 2:
+            walls.append((time.perf_counter() - t0) * 1e3)
+    n_fwd = _kernel_launches(torch, lambda: model.tile_forward_nchw(batch, 0.5))
+    print(f"tile_forward_nchw alone on 8 tiles of 640: median {statistics.median(walls):.3f} ms wall "
+          f"(min {min(walls):.3f}, max {max(walls):.3f}), {n_fwd} kernel launches")
+    # the 8,400-token selection alone, at the main path's shape: a stable
+    # descending sort of [8, 8400] float32 scores cut to 300, and the two takes
+    score = torch.randn(8, 8400, device="cuda")
+    tokens = torch.randn(8, 8400, 256, device="cuda")
+    boxes = torch.rand(8, 8400, 4, device="cuda")
+
+    def select():
+        idx = torch.sort(score, dim=1, descending=True, stable=True).indices[:, :300]
+        return (torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4)),
+                torch.gather(tokens, 1, idx[..., None].expand(-1, -1, 256)))
+
+    print(f"query selection alone (stable sort of 8x8400 scores, cut to 300, two takes): "
+          f"{event_ms(torch, select):.4f} ms per tile batch")
+    counts = {"gather_chw": launches["gather_chw"]}
+    print(f"launches on the RT-DETR main path: {counts}")
+    return counts
+
+
+def onnx_phase(torch, scrfd_pair, models):
+    phase("18 ONNX routes (float32, TF32 off): exported graphs against the native routes, on the card")
+    from facedet_tpu_torch import get_sliced_prediction
+    from facedet_tpu_torch.engine.onnx_wrapper import OnnxDetectionModel
+    from facedet_tpu_torch.engine.scrfd_wrapper import ScrfdDetectionModel
+    from facedet_tpu_torch.models import onnx_export
+    from facedet_tpu_torch.ops.kernels import tile_gather as tg
+
+    images = [_photo(530 + i) for i in range(5)]
+
+    def timed(model, label):
+        times, found = _serve(model, images, SLICED_KW, label)
+        n = _kernel_launches(torch, lambda: get_sliced_prediction(images[0], model, **SLICED_KW))
+        ms = statistics.median(times)
+        print(f"{label}: median {ms:.2f} ms/image over {len(times)} images (min {min(times):.2f}, "
+              f"max {max(times):.2f}), {n} kernel launches per image")
+        return ms
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        t0 = time.perf_counter()
+        paths = {k: os.path.join(tmp, f"{k}.onnx") for k in ("scrfd_b1", "yolo11n_b1")}
+        onnx_export.export_scrfd_onnx(scrfd_pair["cpu"].model, SLICE, paths["scrfd_b1"])
+        onnx_export.export_yolo_onnx(models["cpu"].model, SLICE, paths["yolo11n_b1"])
+        for k, path in paths.items():
+            check(os.path.exists(path) and os.path.getsize(path) > 1_000_000, f"the exported graph {k} is missing")
+        print(f"exported {[(k, round(os.path.getsize(v) / 1e6, 2)) for k, v in paths.items()]} (MB) from the port's "
+              f"own modules in {time.perf_counter() - t0:.1f} s")
+        kw = dict(variant="scrfd_2.5g", dtype="float32", image_size=SLICE, confidence_threshold=0.3)
+        scrfd_onnx = ScrfdDetectionModel(model_path=paths["scrfd_b1"], **kw)
+        yolo_onnx = OnnxDetectionModel(model_path=paths["yolo11n_b1"], num_keypoints=5, image_size=SLICE,
+                                       confidence_threshold=models["cuda"].confidence_threshold)
+    check(all(v.is_cuda for m in (scrfd_onnx, yolo_onnx) for v in m.variables["params"].values()),
+          "an imported graph's weights are not on the card")
+    before = tg.LAUNCHES["gather_chw"]
+    want = get_sliced_prediction(images[0], scrfd_pair["cuda"], **SLICED_KW).detections.to_numpy()
+    check(len(want["boxes"]) > 0, "the native SCRFD route found nothing")
+    got = get_sliced_prediction(images[0], scrfd_onnx, **SLICED_KW).detections.to_numpy()
+    _compare(got, want, "SCRFD .onnx (insightface layout)", ".onnx route vs .npz route")
+    want = get_sliced_prediction(images[0], models["cuda"], **SLICED_KW).detections.to_numpy()
+    got = get_sliced_prediction(images[0], yolo_onnx, **SLICED_KW).detections.to_numpy()
+    check(len(want["boxes"]) > 0, "the native yolo11n route found nothing")
+    _compare(got, want, "yolo11n .onnx (ultralytics head)", ".onnx route vs YoloV11PoseDetectionModel")
+    check(tg.LAUNCHES["gather_chw"] == before + 4, "an ONNX route did not go through the CHW gather")
+    timed(scrfd_pair["cuda"], "SCRFD native float32")
+    timed(scrfd_onnx, "SCRFD .onnx, batch 1, a loop over tiles")
+    timed(models["cuda"], "yolo11n native float32")
+    timed(yolo_onnx, "yolo11n .onnx, batch 1, a loop over tiles")
 
 
 def main() -> int:
@@ -1223,16 +1561,28 @@ def main() -> int:
         served, enh_launches = sr_main_path_phase(torch, f32)
         counts["gather_chw@2048x3072"] = pipeline_v2_phase(torch, models, f32, served)
         pipeline_v1_phase(torch, models, f32, served)
-        cli_phase()
-        print(f"launches on the enhancement main path: {dict(enh_launches)} (window gathers of tiled_sr and "
+        enh_counts = dict(enh_launches)  # read before a later phase sets the counts to 0
+        check(enh_counts["gather_chw"] > 0, "the enhancement main path did not launch the CHW gather")
+        print(f"launches on the enhancement main path: {enh_counts} (window gathers of tiled_sr and "
               f"the detections of pipelines v1 and v2; the v2 canvas: {counts['gather_chw@2048x3072']})")
+        cli_phase()
+        scrfd_pair = scrfd_fidelity_phase(torch)
+        family_counts = {"scrfd": scrfd_main_path_phase(torch), "rtdetr": rtdetr_phase(torch)}
+        onnx_phase(torch, scrfd_pair, models)
+        for family, c in family_counts.items():
+            check(c["gather_chw"] > 0, f"the {family} main path did not launch the CHW gather")
+            for name, n in c.items():
+                counts[name] += n
+        check(family_counts["scrfd"]["gather_chw_batched"] > 0, "SCRFD's batch did not launch the batched gather")
         for k in KERNELS:
             check(counts[k["name"]] > 0, f"{k['name']} was not launched on its main path")
         check("jax" not in sys.modules and "facedet_tpu" not in sys.modules, "jax or facedet_tpu was imported")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
+    phase()
     report = [{**k, "launches": counts[k["name"]], **timings[k["name"]]} for k in KERNELS]
+    print(f"seconds by phase: {json.dumps(PHASE_SECONDS)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": report}))
     print(smi)

@@ -1,12 +1,15 @@
 """PyTorch / CUDA port of facedet_tpu: SAHI sliced face detection with
-YOLOv11-pose and Real-ESRGAN super-resolution on an NVIDIA H100.
+YOLOv11-pose, SCRFD, RT-DETR or an imported ONNX graph, and Real-ESRGAN
+super-resolution on an NVIDIA H100.
 
 The package imports torch, numpy and PIL, never jax or facedet_tpu. Its
 entry points run on the CUDA device unless the caller passes
 ``device="cpu"``. The serving path is ``predict_stream_batched`` over
 ``input_format="dct420s"`` (engine/predict.py); enhancement is
 ``FaceEnhancer`` (engine/enhancer.py) and the two composed pipelines of
-engine/pipelines.py.
+engine/pipelines.py. The other detector families live in
+engine/scrfd_wrapper.py, engine/rtdetr_wrapper.py, engine/onnx_wrapper.py and
+engine/fake.py; apps/common.build_detector builds all five.
 """
 from facedet_tpu_torch.core.detections import Detections
 from facedet_tpu_torch.engine.detector import DetectionModel, YoloV11PoseDetectionModel

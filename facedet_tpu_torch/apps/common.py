@@ -1,7 +1,7 @@
 """Shared CLI plumbing for the port's apps (counterpart of
-facedet_tpu/apps/common.py). Only the yolov11 family is ported; the other
-families exit with "not yet ported". ``build_detector`` and
-``build_enhancer`` take the torch device, ``cuda`` by default."""
+facedet_tpu/apps/common.py). ``build_detector`` builds the five detector
+families (yolov11, scrfd, rtdetr, onnx, fake); it and ``build_enhancer`` take
+the torch device, ``cuda`` by default."""
 from __future__ import annotations
 
 import argparse
@@ -11,6 +11,16 @@ from facedet_tpu_torch.utils.config import DetectorConfig, EnhancerConfig
 
 
 def build_detector(cfg: DetectorConfig, device: str = "cuda"):
+    if cfg.family == "fake":
+        # deterministic blob detector (engine/fake.py): lets every CLI run
+        # end to end without weights
+        from facedet_tpu_torch.engine.fake import FakeBlobDetectionModel
+
+        return FakeBlobDetectionModel(
+            confidence_threshold=cfg.confidence_threshold,
+            image_size=cfg.image_size,
+            device=device,
+        )
     if cfg.family == "yolov11":
         from facedet_tpu_torch.engine.detector import YoloV11PoseDetectionModel
 
@@ -23,7 +33,38 @@ def build_detector(cfg: DetectorConfig, device: str = "cuda"):
             max_detections_per_tile=cfg.max_detections_per_tile,
             device=device,
         )
-    raise SystemExit(f"error: detector family {cfg.family!r} is not yet ported to facedet_tpu_torch")
+    if cfg.family == "scrfd":
+        from facedet_tpu_torch.engine.scrfd_wrapper import ScrfdDetectionModel
+
+        return ScrfdDetectionModel(
+            model_path=cfg.model_path,
+            confidence_threshold=cfg.confidence_threshold,
+            image_size=cfg.image_size,
+            dtype=cfg.dtype,
+            device=device,
+        )
+    if cfg.family == "rtdetr":
+        from facedet_tpu_torch.engine.rtdetr_wrapper import RtDetrDetectionModel
+
+        return RtDetrDetectionModel(
+            model_path=cfg.model_path,
+            confidence_threshold=cfg.confidence_threshold,
+            image_size=cfg.image_size,
+            dtype=cfg.dtype,
+            device=device,
+        )
+    if cfg.family == "onnx":
+        # any exported ultralytics YOLO/RT-DETR .onnx (engine/onnx_wrapper.py)
+        from facedet_tpu_torch.engine.onnx_wrapper import OnnxDetectionModel
+
+        return OnnxDetectionModel(
+            model_path=cfg.model_path,
+            confidence_threshold=cfg.confidence_threshold,
+            image_size=cfg.image_size,
+            max_detections_per_tile=cfg.max_detections_per_tile,
+            device=device,
+        )
+    raise ValueError(f"unknown detector family {cfg.family!r}")
 
 
 def build_enhancer(cfg: EnhancerConfig, device: str = "cuda"):
@@ -44,11 +85,10 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=description)
     ap.add_argument("--input", default="data/input", help="image file or folder")
     ap.add_argument("--output", default="data/output")
-    ap.add_argument("--model-path", default=None, help=".npz checkpoint of the JAX package")
+    ap.add_argument("--model-path", default=None, help=".npz checkpoint of the JAX package, or .onnx")
     ap.add_argument(
         "--family", default="yolov11",
         choices=["yolov11", "scrfd", "rtdetr", "onnx", "fake"],
-        help="only yolov11 is ported",
     )
     ap.add_argument("--scale", default="s", help="yolo model scale n/s/m/l/x")
     ap.add_argument("--conf", type=float, default=0.3)

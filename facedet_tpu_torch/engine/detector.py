@@ -33,6 +33,7 @@ from facedet_tpu_torch.core.letterbox import (
     unletterbox_kpts,
 )
 from facedet_tpu_torch.engine.prediction import detections_to_object_predictions
+from facedet_tpu_torch.models.init import random_init as _random_init
 
 DEFAULT_CATEGORY_MAPPING = {"0": "face"}
 
@@ -189,20 +190,6 @@ def _exact_float32(on: bool):
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
-
-
-def _random_init(model: torch.nn.Module, seed: int) -> None:
-    """Random weights from a seeded generator: conv kernels N(0, 1/fan_in),
-    conv biases 0; BatchNorm keeps torch's defaults, which are flax's
-    (scale 1, bias 0, mean 0, var 1)."""
-    gen = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, torch.nn.Conv2d):
-                fan_in = m.weight[0].numel()
-                m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * fan_in**-0.5)
-                if m.bias is not None:
-                    m.bias.zero_()
 
 
 class YoloV11PoseDetectionModel(DetectionModel):

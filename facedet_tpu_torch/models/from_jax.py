@@ -15,6 +15,12 @@ orders the unshuffled channels ``(fy*f + fx)*C + c`` where
 flax order in its own unshuffle (models/rrdbnet.pixel_unshuffle_nchw), so
 ``conv_first``'s input channels are carried across unpermuted, like every
 other kernel.
+
+SCRFD and RT-DETR add ``Dense`` kernels ``[in, out]`` (transposed into
+``Linear.weight``), LayerNorm / GroupNorm scales, the leaves of flax's
+``MultiHeadDotProductAttention`` (``query|key|value/kernel`` ``[D, H, dh]``
+with bias ``[H, dh]``, ``out/kernel`` ``[H, dh, D]``), which fold into plain
+``Linear`` layers, and a bare parameter (``dn_embed``), which keeps its name.
 """
 from __future__ import annotations
 
@@ -32,6 +38,8 @@ _LEAVES = {
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
 }
+# parameters that a flax module owns directly (no submodule, no leaf name)
+_BARE_PARAMS = ("dn_embed",)
 
 
 def load_params_npz(path: str) -> dict:
@@ -60,18 +68,35 @@ def from_jax_variables(tree: dict) -> dict[str, torch.Tensor]:
     """Nested flax variables {params, batch_stats} -> torch state dict.
 
     Conv kernels HWIO become OIHW (``transpose(3, 2, 0, 1)``, grouped convs
-    included). Quantised (int8) params are not ported yet."""
+    included); Dense kernels ``[in, out]`` become ``[out, in]``; attention
+    kernels fold their head axes (``out/kernel`` ``[H, dh, D]`` on the input
+    side, the others ``[D, H, dh]`` on the output side). Quantised (int8)
+    params are not ported yet."""
     state: dict[str, torch.Tensor] = {}
     for path, arr in _walk(tree):
         collection, leaf = path[0], path[-1]
+        arr = np.asarray(arr, np.float32)
+        if collection == "params" and len(path) == 2 and leaf in _BARE_PARAMS:
+            state[leaf] = torch.from_numpy(np.ascontiguousarray(arr))
+            continue
         name = _LEAVES.get((collection, leaf))
         if name is None:
             if leaf in ("qkernel", "ascale", "oscale", "obias"):
                 raise NotImplementedError("int8 (quantised) checkpoints are not yet ported")
             raise KeyError(f"unexpected flax variable {'/'.join(path)}")
-        arr = np.asarray(arr, np.float32)
         if leaf == "kernel":
-            arr = arr.transpose(3, 2, 0, 1)
+            if arr.ndim == 4:
+                arr = arr.transpose(3, 2, 0, 1)
+            elif arr.ndim == 3:  # attention projection with a head axis
+                is_out = len(path) >= 2 and path[-2] == "out"
+                arr = arr.reshape(-1, arr.shape[-1]) if is_out else arr.reshape(arr.shape[0], -1)
+                arr = arr.T
+            elif arr.ndim == 2:
+                arr = arr.T
+            else:
+                raise KeyError(f"flax kernel {'/'.join(path)} has an unexpected rank {arr.ndim}")
+        elif leaf == "bias" and arr.ndim == 2:  # attention bias [H, dh]
+            arr = arr.reshape(-1)
         state[".".join(path[1:-1] + (name,))] = torch.from_numpy(np.ascontiguousarray(arr))
     return state
 

@@ -195,5 +195,7 @@ class C2PSA(nn.Module):
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
-    """Nearest-neighbour 2x upsample (NCHW)."""
-    return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+    """Nearest-neighbour 2x upsample (NCHW), as broadcast + reshape: one
+    copy, and it exports to ONNX as Unsqueeze / Expand / Reshape."""
+    b, c, h, w = x.shape
+    return x[:, :, :, None, :, None].expand(b, c, h, 2, w, 2).reshape(b, c, 2 * h, 2 * w)

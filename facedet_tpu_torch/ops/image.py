@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["compute_weight_mat", "scale_and_translate_chw", "resize_chw", "reflect_pad"]
+__all__ = ["compute_weight_mat", "scale_and_translate_chw", "resize_chw", "resize_nd", "reflect_pad"]
 
 
 def _triangle_kernel(x: torch.Tensor) -> torch.Tensor:
@@ -28,7 +28,20 @@ def _lanczos3_kernel(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x > radius, torch.zeros_like(x), out)
 
 
-_KERNELS = {"linear": _triangle_kernel, "bilinear": _triangle_kernel, "lanczos3": _lanczos3_kernel}
+def _keys_cubic_kernel(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic convolution kernel with a = -0.5 (``jax.image``'s
+    "cubic"; ``F.interpolate(mode="bicubic")`` uses a = -0.75)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+_KERNELS = {
+    "linear": _triangle_kernel,
+    "bilinear": _triangle_kernel,
+    "lanczos3": _lanczos3_kernel,
+    "cubic": _keys_cubic_kernel,
+}
 
 
 def compute_weight_mat(in_size: int, out_size: int, scale, translation=0.0, device=None,
@@ -79,20 +92,32 @@ def scale_and_translate_chw(image: torch.Tensor, out_h: int, out_w: int, scale) 
     return torch.matmul(torch.matmul(wh.t(), image), ww)
 
 
+def resize_nd(x: torch.Tensor, sizes, method: str) -> torch.Tensor:
+    """``jax.image.resize(x, sizes, method)`` for a tensor of any rank,
+    ``method`` "nearest", "linear" (or "bilinear"), "cubic" or "lanczos3";
+    axes whose size does not change are left alone. "nearest" takes ``floor((i + 0.5) * in / out)``
+    (torch's ``nearest-exact``); the others apply ``compute_weight_mat``
+    along each axis, antialiased where it shrinks."""
+    if len(sizes) != x.dim():
+        raise ValueError(f"resize to {tuple(sizes)} of a tensor of shape {tuple(x.shape)}")
+    for axis, (n_in, n_out) in enumerate(zip(x.shape, sizes)):
+        if n_in == n_out:
+            continue
+        if method == "nearest":
+            pos = (torch.arange(n_out, dtype=torch.float32, device=x.device) + 0.5) * n_in / n_out  # float32, in JAX's order
+            x = x.index_select(axis, pos.floor().to(torch.long))
+        else:
+            w = compute_weight_mat(n_in, n_out, n_out / n_in, device=x.device, kernel=method).to(x.dtype)
+            x = torch.movedim(torch.matmul(torch.movedim(x, axis, -1), w), -1, axis)
+    return x
+
+
 def resize_chw(image: torch.Tensor, out_h: int, out_w: int, method: str = "bilinear") -> torch.Tensor:
     """``jax.image.resize(image_hwc, (out_h, out_w, C), method)`` for an image
     in CHW layout (any leading axes), ``method`` "bilinear" or "lanczos3",
     antialiased where it shrinks: axes whose size does not change are left
     alone."""
-    h, w = image.shape[-2:]
-    out = image
-    if out_h != h:
-        wh = compute_weight_mat(h, out_h, out_h / h, device=image.device, kernel=method).to(image.dtype)
-        out = torch.matmul(wh.t(), out)
-    if out_w != w:
-        ww = compute_weight_mat(w, out_w, out_w / w, device=image.device, kernel=method).to(image.dtype)
-        out = torch.matmul(out, ww)
-    return out
+    return resize_nd(image, (*image.shape[:-2], out_h, out_w), method)
 
 
 def _reflect_index(n: int, before: int, after: int, device=None) -> torch.Tensor:

@@ -145,5 +145,8 @@ def test_cli_writes_folders_and_summaries(tmp_path):
     for s in (1, 2):
         folder = tmp_path / "out" / f"img{s}"
         assert (folder / f"img{s}_summary.txt").exists() and (folder / f"img{s}_detections.jpg").exists()
-    with pytest.raises(SystemExit, match="not yet ported"):
+    # the other families run behind the same CLI (the yolo checkpoint does not fit SCRFD: strict loading)
+    with pytest.raises(KeyError, match="do not match"):
         app_yolo_sahi.main(args + ["--family", "scrfd"])
+    fake = app_yolo_sahi.main(args[:4] + ["--family", "fake", "--slice", "128", "--imgsz", "128", "--device", "cpu"])
+    assert len(fake) == 2 and all(s["faces"] > 0 for s in fake)
