@@ -51,7 +51,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the bytes each fetch format moves;
 14. the app_v2, app_v1, app_enhancer and app_yolo_full CLIs as
    subprocesses; the counts are read after them. Phase 19's processes start
-   with them and are collected right after them, before phase 15;
+   with them and are collected right after them, before phase 15. Before
+   them a seeded synthetic WIDERFACE layout is written for phases 19 and
+   21-23: 8 photo-like 1024x1536 images of 12 faces as event/name.jpg and a
+   gt.txt with each face's box (utils/synth.synthetic_faces_with_boxes);
 15. SCRFD fidelity: the golden scrfd_2.5g in float32 (TF32 off) through
    get_sliced_prediction, the card against the CPU; a batch of 4 through
    get_sliced_prediction_batch against 4 single calls; the checkpoint and
@@ -70,8 +73,29 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    YoloV11PoseDetectionModel; ms per image and kernel launches of each;
 19. the other families' CLIs as subprocesses: app_yolo_sahi with --family
    scrfd, rtdetr and fake, app_retinaface, inference_direct,
-   app_yolo_inference;
-20. report: the wall seconds of every phase, a ``kernels`` JSON line, the nvidia-smi line, and last the
+   app_yolo_inference; and the evaluators' CLIs, eval_official and
+   eval_dual_cli, on the synthetic layout (their JSON results are held
+   against phases 21 and 22);
+20. TOPIQ: CFANet at full width (ResNet50 3/4/6/3, embed 256, 4 heads) from a
+   seeded init; float32 (TF32 off) card against CPU on three 224x224 crops
+   and one 100x100; a batch of 64 crops at 224x224 in float32 and bfloat16:
+   ms per batch, images per second, TFLOP/s from the counted FLOPs, peak
+   memory, a profile, and bfloat16 against float32 as the largest |dscore|;
+21. the official WIDERFACE evaluator: the SAHI-uniform mode in float32 on two
+   images, card against CPU (counts, boxes, scores, AP); then, with the
+   launch counts set to 0, the detector the eval CLIs build (yolo11n golden,
+   bfloat16, letterbox 1024, conf 0.01) in six modes: BASELINE, SAHI
+   uniform 640/0.2, SAHI adaptive, SAHI with dct420s ingest, FULL-ENHANCE x2
+   and BOUNDED-ENHANCE x2 before SAHI; AP and images per second of each;
+   the eval_official CLI's AP against the SAHI-uniform mode's;
+22. the dual evaluator (six subcategories and easy/medium/hard rebuilt from
+   them) with the eval_dual_cli predict function, against that CLI's nine
+   APs, and the 'quick' SAHI tuning grid on two images with no image
+   skipped for an error; the counts are read after it;
+23. IQA: NIQE and BRISQUE on four face crops, the committed
+   niqe_pristine.npz and brisque_svr.npz loaded (no self-fit), the native
+   bbox_overlaps built and equal to its numpy version;
+24. report: the wall seconds of every phase, a ``kernels`` JSON line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 It imports nothing of jax or facedet_tpu and needs the checkout: run alone
@@ -82,6 +106,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1222,10 +1247,11 @@ def _collect_clis(procs, runs, tmp) -> dict:
     return outs
 
 
-def cli_phase():
-    """Phases 14 and 19. All ten processes start together, so that the six
-    of phase 19 load torch while the four of phase 14 run; nothing else runs
-    on the card meanwhile, and no timed phase overlaps them."""
+def cli_phase(ev):
+    """Phases 14 and 19. All twelve processes start together, so that the
+    eight of phase 19 load torch while the four of phase 14 run; nothing else
+    runs on the card meanwhile, and no timed phase overlaps them. Returns the
+    JSON results of the two evaluation CLIs, run on the layout ``ev``."""
     from facedet_tpu_torch.utils.viz import save_image
 
     with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
@@ -1270,6 +1296,14 @@ def cli_phase():
                                                           "--conf", "0.3"],
                                    [os.path.join("inf", f) for f in ("img61_detections.jpg", "img61_summary.txt")]),
         }
+        # the evaluators with what their CLIs build: yolo11n, bfloat16, letterbox 1024, conf 0.01
+        eval_out = {k: os.path.join(ev["root"], k) for k in ("eval_official", "eval_dual_cli")}
+        eval_files = {"eval_official": "official_eval_results.json", "eval_dual_cli": "dual_eval_results.json"}
+        family_runs.update({
+            k: (k, ["--images", ev["images"], "--gt-txt", ev["gt"], *det, "--output", eval_out[k]],
+                [os.path.join(eval_out[k], eval_files[k])])
+            for k in eval_out
+        })
         phase("14 CLIs as subprocesses: app_v2, app_v1, app_enhancer --fetch dct420s, app_yolo_full")
         t0 = time.perf_counter()
         procs = _start_clis({**runs, **family_runs}, extra=("--device", "cuda"))
@@ -1277,7 +1311,7 @@ def cli_phase():
             outs = _collect_clis({k: procs[k] for k in runs}, runs, tmp)
             check("Enhanced: 2" in outs["app_enhancer"] and "Failed: 0" in outs["app_enhancer"],
                   f"app_enhancer's summary:\n{outs['app_enhancer'][-1000:]}")
-            phase("19 the other families' CLIs as subprocesses (started with phase 14's)")
+            phase("19 the other families' and the evaluators' CLIs as subprocesses (started with phase 14's)")
             outs = _collect_clis({k: procs[k] for k in family_runs}, family_runs, tmp)
             for key in ("scrfd", "fake", "inference_direct", "app_yolo_inference"):
                 last = [line for line in outs[key].strip().splitlines() if line][-1]
@@ -1291,7 +1325,13 @@ def cli_phase():
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
-        print(f"ten CLI runs, started together: {time.perf_counter() - t0:.1f} s")
+        print(f"twelve CLI runs, started together: {time.perf_counter() - t0:.1f} s")
+    results = {}
+    for k, f in eval_files.items():
+        with open(os.path.join(eval_out[k], f)) as fh:
+            results[k] = json.load(fh)
+    print(f"eval_official CLI: {results['eval_official']}")
+    return results
 
 
 def _kernel_launches(torch, run) -> int:
@@ -1532,6 +1572,305 @@ def onnx_phase(torch, scrfd_pair, models):
     timed(yolo_onnx, "yolo11n .onnx, batch 1, a loop over tiles")
 
 
+EVAL_IMAGES = 8
+TOPIQ_BATCH = 64
+NIQE_ASSET = os.path.join(REPO, "facedet_tpu", "eval", "assets", "niqe_pristine.npz")
+BRISQUE_ASSET = os.path.join(REPO, "facedet_tpu", "eval", "assets", "brisque_svr.npz")
+
+
+def widerface_layout(root):
+    """A seeded synthetic WIDERFACE layout: EVAL_IMAGES photo-like
+    1024x1536 images of 12 faces each as ``images/<event>/<name>.jpg``, and
+    ``gt.txt`` (x y w h and the six attribute columns; every third face is
+    marked blurred, so both of the dual evaluator's degradation classes
+    hold faces). ``gt2.txt`` holds the first two images; ``tuning`` is the
+    tuner's dataset of the same two."""
+    from facedet_tpu_torch.utils.synth import natural_background, synthetic_faces_with_boxes
+    from facedet_tpu_torch.utils.viz import save_image
+
+    blocks, tuning = [], []
+    for k in range(EVAL_IMAGES):
+        event, name = f"{k // 4}--Synthetic", f"{k // 4}_Synthetic_{k}"
+        img, boxes = synthetic_faces_with_boxes(*CANVAS, seed=700 + k, n=12,
+                                                background=natural_background(*CANVAS, seed=700 + k))
+        path = os.path.join(root, "images", event, f"{name}.jpg")
+        save_image(path, img, quality=95)
+        xywh = [(x1, y1, x2 - x1, y2 - y1) for x1, y1, x2, y2 in boxes]
+        blocks.append([f"{event}/{name}.jpg", str(len(xywh))] +
+                      [f"{x:.2f} {y:.2f} {w:.2f} {h:.2f} {int(j % 3 == 0)} 0 0 0 0 0" for j, (x, y, w, h) in enumerate(xywh)])
+        tuning.append({"file_name": path, "image_id": k, "gt": [[round(v, 2) for v in b] for b in xywh]})
+    ev = {"root": root, "images": os.path.join(root, "images"), "gt": os.path.join(root, "gt.txt"),
+          "gt2": os.path.join(root, "gt2.txt"), "tuning": tuning[:2]}
+    for key, n in (("gt", EVAL_IMAGES), ("gt2", 2)):
+        with open(ev[key], "w") as f:
+            f.write("\n".join(line for block in blocks[:n] for line in block) + "\n")
+    return ev
+
+
+def topiq_flops(torch, model, h, w) -> tuple[float, float]:
+    """FLOPs (two per multiply-add) of one h x w image through CFANet, in
+    all and in the ResNet50 trunk, counted from the shapes one forward sees:
+    every conv and linear, the attention projections and its two products."""
+    from facedet_tpu_torch.models.topiq import MultiheadAttention
+
+    flops = {"all": 0.0, "trunk": 0.0}
+    trunk = {id(m) for m in model.backbone.modules()}
+
+    def add(m, n):
+        flops["all"] += n
+        if id(m) in trunk:
+            flops["trunk"] += n
+
+    def conv(m, inp, out):
+        add(m, 2.0 * out[0].numel() * m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1])
+
+    def linear(m, inp, out):
+        add(m, 2.0 * out[0].numel() * m.in_features)
+
+    def attention(m, inp, out):
+        (_, nq, d), nk = inp[0].shape, inp[1].shape[1]
+        add(m, 2.0 * d * d * (nq + 2 * nk) + 2 * 2.0 * nq * nk * d)  # q, k, v; q k^T and a v
+
+    kinds = {torch.nn.Conv2d: conv, torch.nn.Linear: linear, MultiheadAttention: attention}
+    hooks = [m.register_forward_hook(kinds[type(m)]) for m in model.modules() if type(m) in kinds]
+    try:
+        with torch.inference_mode():
+            model.forward_nchw(torch.zeros(1, 3, h, w, device=next(model.parameters()).device))
+    finally:
+        for hk in hooks:
+            hk.remove()
+    return flops["all"], flops["trunk"]
+
+
+def topiq_phase(torch):
+    phase("20 TOPIQ CFANet at full width, seeded: float32 card against CPU, a batch of 64 in float32 and bfloat16")
+    import dataclasses
+
+    import numpy as np
+
+    from facedet_tpu_torch.engine.detector import _exact_float32
+    from facedet_tpu_torch.models.topiq import TopiqConfig, create_topiq, topiq_score
+
+    cfg = TopiqConfig()
+    check((cfg.embed_dim, cfg.num_heads, cfg.stage_channels, cfg.stage_depths) ==
+          (256, 4, (256, 512, 1024, 2048), (3, 4, 6, 3)), f"TopiqConfig() is {cfg}")
+    seed = lambda: torch.Generator().manual_seed(13)  # noqa: E731 - one seed, drawn on the host
+    cpu = create_topiq(cfg, seed(), device="cpu")
+    card = create_topiq(cfg, seed(), device="cuda")
+    n_params = sum(p.numel() for p in card.parameters())
+    photos = [_photo(600 + i) for i in range(4)]
+    crops = [photos[i][100 + 50 * i : 324 + 50 * i, 200 + 90 * i : 424 + 90 * i] for i in range(3)]
+    crops.append(photos[3][400:500, 700:800])  # 100x100: the scales pool to 16, 16, 49 and 16 tokens
+    t0 = time.perf_counter()
+    want = np.array([topiq_score(cpu, c) for c in crops])
+    cpu_s = time.perf_counter() - t0
+    got = np.array([topiq_score(card, c) for c in crops])
+    err = float(np.abs(got - want).max())
+    check(np.isfinite(got).all() and err <= 1e-4, f"TOPIQ float32 card vs CPU: {got} against {want}")
+    print(f"TOPIQ float32 (TF32 off), {n_params / 1e6:.2f} M parameters: scores {np.round(got, 6).tolist()} on "
+          f"3 crops of 224x224 and one of 100x100; card vs CPU max err {err:.3g}; CPU {cpu_s:.1f} s")
+
+    batch = np.stack([p[y : y + 224, x : x + 224] for p in photos for y in range(0, 800, 200)
+                      for x in range(0, 1300, 330)][:TOPIQ_BATCH])
+    x = torch.from_numpy(batch).cuda().permute(0, 3, 1, 2).float().div(255.0).contiguous()
+    flops, trunk_flops = topiq_flops(torch, card, 224, 224)
+    print(f"FLOPs per 224x224 image: {flops / 1e9:.3f} G in all, {trunk_flops / 1e9:.3f} G in the ResNet50 trunk's convs")
+    scores = {}
+    for dtype, model in (("float32", card),
+                         ("bfloat16", create_topiq(dataclasses.replace(cfg, dtype="bfloat16"), seed(), device="cuda"))):
+        def run(model=model, dtype=dtype):
+            with torch.inference_mode(), _exact_float32(dtype == "float32"):
+                return model.forward_nchw(x)
+
+        for _ in range(3):
+            run()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(walls)
+        torch.cuda.reset_peak_memory_stats()
+        scores[dtype] = run().float().cpu().numpy()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        rate = flops * TOPIQ_BATCH / ms / 1e9
+        print(f"TOPIQ {dtype}, batch {TOPIQ_BATCH} at 224x224: median {ms:.3f} ms per batch over 10 (min {min(walls):.3f}, "
+              f"max {max(walls):.3f}), {TOPIQ_BATCH / ms * 1e3:.1f} images/s, {rate:.1f} TFLOP/s "
+              f"({100 * rate / (BF16_FLOPS_PER_S / 1e12):.1f}% of the 989 TFLOP/s bfloat16 peak), peak memory {peak:.3f} GB")
+        _profile(torch, run, ms / TOPIQ_BATCH, n=3, images=TOPIQ_BATCH, label=f"TOPIQ {dtype}")
+    check(all(np.isfinite(s).all() and s.shape == (TOPIQ_BATCH,) for s in scores.values()), "TOPIQ batch scores")
+    delta = float(np.abs(scores["bfloat16"] - scores["float32"]).max())
+    check(delta <= 0.1, f"TOPIQ bfloat16 against float32: |dscore| up to {delta}")
+    print(f"TOPIQ bfloat16 against float32 on the batch: largest |dscore| {delta:.4g} (scores {scores['float32'].min():.4f} "
+          f"to {scores['float32'].max():.4f})")
+
+
+def _xyxy(a):
+    import numpy as np
+
+    return np.concatenate([a[:, :2], a[:, :2] + a[:, 2:4]], 1)
+
+
+def official_eval_phase(torch, models, served, ev, cli_results):
+    """Returns the evaluation detector (the CLI's) and the gather launches of
+    the six modes."""
+    phase("21 official WIDERFACE evaluator: card against CPU, then six modes with yolo11n (launch counts from 0)")
+    import numpy as np
+
+    from facedet_tpu_torch.apps.common import build_detector
+    from facedet_tpu_torch.eval.widerface_official import OfficialWiderFaceEvaluator
+    from facedet_tpu_torch.utils.config import DetectorConfig
+    from facedet_tpu_torch.utils.viz import load_image
+
+    # float32, TF32 off: the SAHI-uniform mode on two images, card against CPU
+    runs = {}
+    for side in ("cpu", "cuda"):
+        e = OfficialWiderFaceEvaluator(models[side], images_path=ev["images"], gt_txt=ev["gt2"],
+                                       inference_confidence=0.01)
+        preds = e.run_inference_on_all_images()
+        runs[side] = (preds, e.run(preds, save=False)["aps"]["all"])
+    n = box_err = score_err = 0.0
+    for event, images in runs["cpu"][0].items():
+        for name, want in images.items():
+            got = runs["cuda"][0][event][name]
+            check(got.shape == want.shape, f"{event}/{name}: {len(got)} predictions on the card, {len(want)} on the CPU")
+            n += len(got)
+            if len(got):
+                box_err = max(box_err, float(np.abs(_xyxy(got) - _xyxy(want)).max()))
+                score_err = max(score_err, float(np.abs(got[:, 4] - want[:, 4]).max()))
+    ap_err = abs(runs["cuda"][1] - runs["cpu"][1])
+    check(n > 0 and box_err <= BOX_ATOL and score_err <= SCORE_ATOL and ap_err <= 0.005,
+          f"evaluator card vs CPU: boxes {box_err}, scores {score_err}, AP {runs['cuda'][1]} against {runs['cpu'][1]}")
+    print(f"SAHI uniform, float32, 2 images: {int(n)} predictions on each side, card vs CPU max errors boxes "
+          f"{box_err:.3g} px, scores {score_err:.3g}; AP {runs['cuda'][1]:.6f} against {runs['cpu'][1]:.6f}")
+
+    launches = _reset_launches()
+    det = build_detector(DetectorConfig(family="yolov11", scale="n", model_path=CKPT, confidence_threshold=0.01,
+                                        image_size=1024), device="cuda")  # what the eval CLIs build
+    enh = served["RealESRGAN_x2plus"]
+    modes = {
+        "BASELINE": dict(use_sahi=False),
+        "SAHI uniform 640/0.2": dict(),
+        "SAHI adaptive": dict(slicing_strategy="adaptive"),
+        "SAHI uniform, dct420s ingest": dict(ingest="dct420s"),
+        "FULL-ENHANCE x2 -> SAHI": dict(enhancer=enh),
+        "BOUNDED-ENHANCE x2 -> SAHI": dict(enhancer=enh, bounded_enhancement=True),
+    }
+    enhanced = []
+    real_enhance = enh.enhance_array
+    enh.enhance_array = lambda *a, **k: (enhanced.append(1), real_enhance(*a, **k))[1]
+    warm = load_image(ev["tuning"][0]["file_name"])
+    results = {}
+    try:
+        for label, kw in modes.items():
+            e = OfficialWiderFaceEvaluator(det, images_path=ev["images"], gt_txt=ev["gt"], **kw)
+            e.run_single_inference(warm)  # shapes and cuDNN plans, not timed
+            del enhanced[:]
+            r = e.run(save=False)
+            check(e.timings["images"] == EVAL_IMAGES and 0.0 <= r["aps"]["all"] <= 1.0,
+                  f"{label}: {e.timings['images']} images, AP {r['aps']['all']}")
+            print(f"{label} [{r['mode']}]: AP {r['aps']['all']:.4f}, {r['images_per_second']:.2f} images/s "
+                  f"over {EVAL_IMAGES} images; images enhanced {len(enhanced)}")
+            results[label] = r
+    finally:
+        del enh.enhance_array
+    check(results["SAHI uniform 640/0.2"]["aps"]["all"] > 0.05, "the SAHI-uniform mode matched no face")
+    count = launches["gather_chw"]
+    check(count > 0, "the evaluator's modes did not launch the CHW gather")
+    cli = cli_results["eval_official"]
+    want = results["SAHI uniform 640/0.2"]
+    diff = abs(cli["aps"]["all"] - want["aps"]["all"])
+    check(cli["mode"] == want["mode"] and diff <= 1e-6,
+          f"eval_official CLI: AP {cli['aps']} ({cli['mode']}) against {want['aps']} in this process")
+    print(f"eval_official CLI (phase 19, --device cuda): AP {cli['aps']['all']:.6f}, in this process "
+          f"{want['aps']['all']:.6f}; launches of the CHW gather over the six modes: {count}")
+    return det, count
+
+
+def dual_tuning_phase(torch, det, ev, cli_results) -> int:
+    """Returns the gather launches of the dual evaluator and the grid."""
+    phase("22 dual evaluator and the SAHI tuning grid (launch counts from 0)")
+    from facedet_tpu_torch.apps.eval_dual_cli import make_predict_fn
+    from facedet_tpu_torch.eval.dual import DualWiderFaceEvaluator
+    from facedet_tpu_torch.eval.subcategory import build_subcategory_gt
+    from facedet_tpu_torch.eval.tuning import run_grid_search
+    from facedet_tpu_torch.utils.viz import load_image
+
+    launches = _reset_launches()
+    built = build_subcategory_gt(ev["gt"])
+    print(f"subcategory GT: {json.dumps(built['statistics']['per_category'])}")
+    dual = DualWiderFaceEvaluator(make_predict_fn(det), built["data"], images_path=ev["images"])
+    t0 = time.perf_counter()
+    res = dual.run(save=False)
+    rows = res["subcategory_results"] + res["difficulty_results"]
+    check(len(rows) == 9 and len(dual.prediction_cache) == EVAL_IMAGES, f"{len(rows)} rows, {len(dual.prediction_cache)} images")
+    for row in rows:
+        print(f"{row['category']:>16}: AP {row['ap']:.4f}  P {row['precision']:.3f} R {row['recall']:.3f} "
+              f"F1 {row['f1_score']:.3f} (gt {row['total_gt']}, pred {row['total_pred']})")
+    print(f"dual evaluator: {EVAL_IMAGES} images inferred once for nine passes, {time.perf_counter() - t0:.2f} s")
+    check(any(r["ap"] > 0 for r in rows), "the dual evaluator scored nothing")
+    cli_rows = cli_results["eval_dual_cli"]["subcategory_results"] + cli_results["eval_dual_cli"]["difficulty_results"]
+    diff = max(abs(a["ap"] - b["ap"]) for a, b in zip(rows, cli_rows))
+    check([r["category"] for r in cli_rows] == [r["category"] for r in rows] and diff <= 1e-6,
+          f"eval_dual_cli's APs differ from this process's by {diff}")
+    print(f"eval_dual_cli (phase 19, --device cuda): the nine APs equal this process's (largest difference {diff:.3g})")
+
+    # the tuner skips an image that raises (as the reference does): here none may
+    grid = run_grid_search(det, ev["tuning"], load_image, grid_name="quick", save=False)
+    errors = [r["errors"] for r in grid["results"]]
+    check(grid["num_configs"] == 4 and errors == [0] * 4, f"tuning grid: errors {errors}")
+    best = grid["best"]
+    print(f"tuning grid 'quick' on 2 images: 4 configurations, errors {errors}; best slice {best['slice_size']} "
+          f"overlap {best['overlap']} mAP {best['map']:.4f} mAP50 {best['map50']:.4f}, "
+          f"{sum(r['seconds'] for r in grid['results']):.2f} s in all")
+    count = launches["gather_chw"]
+    check(count > 0, "the dual evaluator and the grid did not launch the CHW gather")
+    return count
+
+
+def iqa_phase(ev):
+    phase("23 IQA: NIQE and BRISQUE on face crops, the committed artifacts, the native bbox_overlaps")
+    import numpy as np
+
+    from facedet_tpu_torch.eval import iqa
+    from facedet_tpu_torch.eval.bbox_overlaps import bbox_overlaps, bbox_overlaps_numpy, native_library
+    from facedet_tpu_torch.utils.native import BUILD_DIR
+    from facedet_tpu_torch.utils.viz import load_image
+
+    for path in (NIQE_ASSET, BRISQUE_ASSET):
+        check(os.path.exists(path), f"missing {path}: the IQA metrics would fall back to a self-fit")
+    with np.load(NIQE_ASSET) as f:
+        mu, cov = iqa._default_model()
+        check(np.array_equal(mu, f["mu"]) and np.array_equal(cov, f["cov"]), "NIQE did not load niqe_pristine.npz")
+    with np.load(BRISQUE_ASSET) as f:
+        svr = iqa._brisque_svr()
+        check(svr is not None and np.array_equal(svr["alpha"], f["alpha"]), "BRISQUE did not load brisque_svr.npz")
+    item = ev["tuning"][0]
+    img = load_image(item["file_name"])
+    t0 = time.perf_counter()
+    for k, (x, y, w, h) in enumerate(item["gt"][:4]):
+        crop = img[int(y) : int(y + h), int(x) : int(x + w)]
+        s_niqe, s_brisque = iqa.niqe(crop), iqa.brisque(crop)
+        check(np.isfinite(s_niqe) and np.isfinite(s_brisque), f"crop {k}: NIQE {s_niqe}, BRISQUE {s_brisque}")
+        print(f"face crop {k} {crop.shape[1]}x{crop.shape[0]}: NIQE {s_niqe:.4f}, BRISQUE {s_brisque:.4f}, "
+              f"TOPIQ proxy {iqa.topiq_face(crop):.4f}")
+    print(f"IQA of 4 crops on the host: {time.perf_counter() - t0:.2f} s")
+
+    lib = native_library()
+    check(lib is not None and (BUILD_DIR / "libbbox_overlaps.so").exists(), "native/bbox_overlaps.cpp did not build")
+    rng = np.random.default_rng(0)
+    a = rng.uniform(0, 500, (300, 2))
+    a = np.concatenate([a, a + rng.uniform(-5, 120, (300, 2))], 1)
+    b = rng.uniform(0, 500, (40, 2))
+    b = np.concatenate([b, b + rng.uniform(1, 120, (40, 2))], 1)
+    err = float(np.abs(bbox_overlaps(a, b) - bbox_overlaps_numpy(a, b)).max())
+    check(err <= 1e-12, f"native bbox_overlaps differs from numpy by {err}")
+    print(f"native bbox_overlaps built into {BUILD_DIR}; 300x40 IoU matrix equal to numpy's within {err:.3g}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1547,6 +1886,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     t_start = time.perf_counter()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    eval_root = tempfile.mkdtemp(dir=os.path.join(REPO, "build"))
     try:
         smi, count = device_phase(torch)
         build_phase()
@@ -1565,14 +1906,22 @@ def main() -> int:
         check(enh_counts["gather_chw"] > 0, "the enhancement main path did not launch the CHW gather")
         print(f"launches on the enhancement main path: {enh_counts} (window gathers of tiled_sr and "
               f"the detections of pipelines v1 and v2; the v2 canvas: {counts['gather_chw@2048x3072']})")
-        cli_phase()
+        check(all(os.path.exists(p) for p in (CKPT, NIQE_ASSET, BRISQUE_ASSET)),
+              "a committed asset of the evaluation phases is missing from the checkout")
+        ev = widerface_layout(eval_root)
+        cli_results = cli_phase(ev)
         scrfd_pair = scrfd_fidelity_phase(torch)
         family_counts = {"scrfd": scrfd_main_path_phase(torch), "rtdetr": rtdetr_phase(torch)}
         onnx_phase(torch, scrfd_pair, models)
+        topiq_phase(torch)
+        det, official_launches = official_eval_phase(torch, models, served, ev, cli_results)
+        family_counts["evaluation"] = {"gather_chw": official_launches + dual_tuning_phase(torch, det, ev, cli_results)}
+        iqa_phase(ev)
         for family, c in family_counts.items():
             check(c["gather_chw"] > 0, f"the {family} main path did not launch the CHW gather")
             for name, n in c.items():
                 counts[name] += n
+        print(f"launches on the evaluation paths (phases 21, 22): {family_counts['evaluation']}")
         check(family_counts["scrfd"]["gather_chw_batched"] > 0, "SCRFD's batch did not launch the batched gather")
         for k in KERNELS:
             check(counts[k["name"]] > 0, f"{k['name']} was not launched on its main path")
@@ -1580,6 +1929,8 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(eval_root, ignore_errors=True)
     phase()
     report = [{**k, "launches": counts[k["name"]], **timings[k["name"]]} for k in KERNELS]
     print(f"seconds by phase: {json.dumps(PHASE_SECONDS)}")

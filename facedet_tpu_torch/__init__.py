@@ -9,7 +9,9 @@ entry points run on the CUDA device unless the caller passes
 ``FaceEnhancer`` (engine/enhancer.py) and the two composed pipelines of
 engine/pipelines.py. The other detector families live in
 engine/scrfd_wrapper.py, engine/rtdetr_wrapper.py, engine/onnx_wrapper.py and
-engine/fake.py; apps/common.build_detector builds all five.
+engine/fake.py; apps/common.build_detector builds all five. The WIDERFACE
+evaluators, the SAHI tuner and the image-quality metrics (NIQE, BRISQUE,
+TOPIQ's CFANet in models/topiq.py) live in eval/.
 """
 from facedet_tpu_torch.core.detections import Detections
 from facedet_tpu_torch.engine.detector import DetectionModel, YoloV11PoseDetectionModel

@@ -21,14 +21,29 @@ SCRFD and RT-DETR add ``Dense`` kernels ``[in, out]`` (transposed into
 ``MultiHeadDotProductAttention`` (``query|key|value/kernel`` ``[D, H, dh]``
 with bias ``[H, dh]``, ``out/kernel`` ``[H, dh, D]``), which fold into plain
 ``Linear`` layers, and a bare parameter (``dn_embed``), which keeps its name.
+
+TOPIQ's CFANet (``load_topiq_variables``) keeps torch's
+``nn.MultiheadAttention`` layout, the one the JAX package's
+``convert_topiq_torch`` reads: the folded ``query``, ``key`` and ``value``
+projections are packed into ``attn.in_proj_weight [3D, D]`` and
+``in_proj_bias``, ``out`` becomes ``attn.out_proj``, and the bare
+``scale_embed{i}`` parameters keep their names.
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["load_params_npz", "from_jax_variables", "load_jax_variables", "load_rrdb_npz"]
+__all__ = [
+    "load_params_npz",
+    "from_jax_variables",
+    "load_jax_variables",
+    "load_rrdb_npz",
+    "load_topiq_variables",
+]
 
 # flax leaf name -> torch parameter/buffer name
 _LEAVES = {
@@ -39,7 +54,7 @@ _LEAVES = {
     ("batch_stats", "var"): "running_var",
 }
 # parameters that a flax module owns directly (no submodule, no leaf name)
-_BARE_PARAMS = ("dn_embed",)
+_BARE_PARAMS = re.compile(r"dn_embed|scale_embed\d+")
 
 
 def load_params_npz(path: str) -> dict:
@@ -76,7 +91,7 @@ def from_jax_variables(tree: dict) -> dict[str, torch.Tensor]:
     for path, arr in _walk(tree):
         collection, leaf = path[0], path[-1]
         arr = np.asarray(arr, np.float32)
-        if collection == "params" and len(path) == 2 and leaf in _BARE_PARAMS:
+        if collection == "params" and len(path) == 2 and _BARE_PARAMS.fullmatch(leaf):
             state[leaf] = torch.from_numpy(np.ascontiguousarray(arr))
             continue
         name = _LEAVES.get((collection, leaf))
@@ -105,7 +120,10 @@ def load_jax_variables(module: nn.Module, tree: dict) -> None:
     """Load flax variables into ``module``; raises on a missing or extra key
     or a shape mismatch. BatchNorm step counters, which flax does not keep,
     are set to 0."""
-    state = from_jax_variables(tree)
+    _load_strict(module, from_jax_variables(tree))
+
+
+def _load_strict(module: nn.Module, state: dict[str, torch.Tensor]) -> None:
     own = module.state_dict()
     counters = {k for k in own if k.endswith("num_batches_tracked")}
     missing = sorted(set(own) - counters - set(state))
@@ -125,3 +143,26 @@ def load_rrdb_npz(module: nn.Module, path: str) -> None:
     if set(tree) != {"params"}:
         raise KeyError(f"an RRDB checkpoint holds only 'params', got {sorted(tree)}")
     load_jax_variables(module, tree)
+
+
+def _pack_in_proj(state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """``<p>.attn.{query,key,value}.{weight,bias}`` -> ``<p>.attn.in_proj_{weight,bias}``
+    (rows in that order) and ``<p>.attn.out.*`` -> ``<p>.attn.out_proj.*``."""
+    out = {}
+    for key, value in state.items():
+        m = re.fullmatch(r"(.*\.attn)\.(query|key|value|out)\.(weight|bias)", key)
+        if m is None:
+            out[key] = value
+        elif m[2] == "out":
+            out[f"{m[1]}.out_proj.{m[3]}"] = value
+        elif m[2] == "query":
+            parts = [state[f"{m[1]}.{p}.{m[3]}"] for p in ("query", "key", "value")]
+            out[f"{m[1]}.in_proj_{m[3]}"] = torch.cat(parts)
+    return out
+
+
+def load_topiq_variables(module: nn.Module, tree: dict) -> None:
+    """Load the flax variables of the JAX package's ``CFANet`` into the
+    port's ``CFANet`` (models/topiq.py); every leaf is used and every
+    parameter and buffer is set, or it raises."""
+    _load_strict(module, _pack_in_proj(from_jax_variables(tree)))

@@ -31,15 +31,24 @@ def natural_background(h: int, w: int, seed: int = 0) -> np.ndarray:
 def synthetic_faces(h: int, w: int, seed: int = 0, n: int = 6, size=(50, 140), background=None) -> np.ndarray:
     """[h, w, 3] uint8 RGB image holding ``n`` faces of ``size`` px, drawn
     on white noise or on the ``background`` image given."""
+    return synthetic_faces_with_boxes(h, w, seed, n, size, background)[0]
+
+
+def synthetic_faces_with_boxes(h: int, w: int, seed: int = 0, n: int = 6, size=(50, 140), background=None):
+    """``synthetic_faces`` and each face's box: (image, boxes [n, 4] xyxy
+    float64), the box spanning the face ellipse and the hair,
+    ``[cx - 0.45 s, cy - 0.75 s, cx + 0.45 s, cy + 0.55 s]``."""
     rng = np.random.default_rng(seed)
     if background is None:
         background = rng.integers(60, 120, (h, w, 3), dtype=np.uint8)
     img = Image.fromarray(background)
     d = ImageDraw.Draw(img)
-    for _ in range(n):
+    boxes = np.zeros((n, 4))
+    for k in range(n):
         s = int(rng.integers(*size))
         cx = int(rng.integers(s, w - s))
         cy = int(rng.integers(s, h - s))
+        boxes[k] = (cx - 0.45 * s, cy - 0.75 * s, cx + 0.45 * s, cy + 0.55 * s)
         skin = tuple(int(v) for v in rng.integers([180, 120, 90], [235, 170, 140]))
         d.ellipse([cx - 0.4 * s, cy - 0.55 * s, cx + 0.4 * s, cy + 0.55 * s], fill=skin)
         d.ellipse([cx - 0.45 * s, cy - 0.75 * s, cx + 0.45 * s, cy - 0.3 * s], fill=(40, 30, 20))
@@ -49,4 +58,4 @@ def synthetic_faces(h: int, w: int, seed: int = 0, n: int = 6, size=(50, 140), b
             d.ellipse([ox - 0.035 * s, cy - 0.11 * s, ox + 0.035 * s, cy - 0.05 * s], fill=(30, 20, 20))
         d.line([cx, cy - 0.02 * s, cx - 0.04 * s, cy + 0.12 * s], fill=(150, 90, 70), width=max(1, s // 40))
         d.ellipse([cx - 0.14 * s, cy + 0.22 * s, cx + 0.14 * s, cy + 0.3 * s], fill=(160, 60, 60))
-    return np.array(img)
+    return np.array(img), boxes
