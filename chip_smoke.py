@@ -95,7 +95,23 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 23. IQA: NIQE and BRISQUE on four face crops, the committed
    niqe_pristine.npz and brisque_svr.npz loaded (no self-fit), the native
    bbox_overlaps built and equal to its numpy version;
-24. report: the wall seconds of every phase, a ``kernels`` JSON line, the nvidia-smi line, and last the
+24. training fidelity (float32, TF32 off): one train-mode loss and backward
+   of the golden yolo11n and scrfd_2.5g at 320x320, batch 2, on seeded
+   synthetic faces with boxes and landmarks, the card against the CPU: loss
+   parts, every parameter's gradient, the BatchNorm running statistics;
+25. training main path at full width: yolo11n-pose from the golden weights,
+   640x640, batch 8, 12 faces per image, float32, make_optimizer's AdamW:
+   make_train_step's ms per step (median of 20 after 3), images per second,
+   peak memory, kernel launches and device busy per step (a profile of 3
+   steps), TFLOP/s from the FLOPs counted from shapes (forward x3); the same
+   with TF32 on; the staged loop with flip, 20 steps per dispatch; the
+   scrfd_2.5g step at the same size;
+26. learning proof and export: tools/selftrain_demo (yolo, 300 steps of
+   batch 16 at 96x96 from a seeded init) must reach mAP50 >= 0.5 and rise;
+   a YoloTrainer run of 2 epochs on 8 staged images, its last.npz loaded
+   through YoloV11PoseDetectionModel gives the in-memory model's detections;
+   .chiprunignore must not list the golden checkpoints;
+27. report: the wall seconds of every phase, a ``kernels`` JSON line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 It imports nothing of jax or facedet_tpu and needs the checkout: run alone
@@ -1871,6 +1887,267 @@ def iqa_phase(ev):
     print(f"native bbox_overlaps built into {BUILD_DIR}; 300x40 IoU matrix equal to numpy's within {err:.3g}")
 
 
+TRAIN_SIZE, TRAIN_BATCH, TRAIN_FACES = 640, 8, 12  # the golden fine-tune's configuration
+FIDELITY_SIZE, FIDELITY_BATCH = 320, 2
+TRAIN_STEPS, TRAIN_WARMUP, STAGED_STEPS = 20, 3, 20
+F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores, NVIDIA data sheet
+
+
+def _train_batch(torch, size, b, seed, n=TRAIN_FACES):
+    """(images [b, size, size, 3] float in [0, 1], boxes [b, n, 4], mask,
+    kpts [b, n, 5, 3]) of seeded photo-like images; each face's five
+    landmarks (eyes, nose, mouth corners) where synth draws them, inside its
+    box."""
+    import numpy as np
+
+    from facedet_tpu_torch.utils.synth import natural_background, synthetic_faces_with_boxes
+
+    lo, hi = max(24, size // 16), max(40, size // 5)
+    images, boxes = zip(*(synthetic_faces_with_boxes(size, size, seed=seed + i, n=n, size=(lo, hi),
+                                                     background=natural_background(size, size, seed=seed + i))
+                          for i in range(b)))
+    boxes = np.stack(boxes).astype(np.float32)
+    s = (boxes[..., 2] - boxes[..., 0]) / 0.9
+    cx, cy = (boxes[..., 0] + boxes[..., 2]) / 2, boxes[..., 1] + 0.75 * s
+    offsets = np.array([[-0.17, -0.08], [0.17, -0.08], [0.0, 0.05], [-0.12, 0.26], [0.12, 0.26]], np.float32)
+    kpts = np.ones(boxes.shape[:2] + (5, 3), np.float32)
+    kpts[..., 0] = cx[..., None] + offsets[:, 0] * s[..., None]
+    kpts[..., 1] = cy[..., None] + offsets[:, 1] * s[..., None]
+    images = np.stack(images).astype(np.float32) / 255.0
+    return [torch.from_numpy(a) for a in (images, boxes, np.ones(boxes.shape[:2], bool), kpts)]
+
+
+def _golden_trainee(torch, family, device):
+    """The golden yolo11n-pose or scrfd_2.5g, float32, as a trainer builds it."""
+    import dataclasses
+
+    from facedet_tpu_torch.models.from_jax import load_jax_variables, load_params_npz
+    from facedet_tpu_torch.models.scrfd import SCRFD_VARIANTS, Scrfd
+    from facedet_tpu_torch.models.yolov11 import YoloConfig, YoloV11
+
+    if family == "yolo11n":
+        model, path = YoloV11(YoloConfig(scale="n")), CKPT
+    else:
+        model, path = Scrfd(dataclasses.replace(SCRFD_VARIANTS["scrfd_2.5g"], dtype="float32")), SCRFD_CKPT
+    load_jax_variables(model, load_params_npz(path))
+    return model.to(device)
+
+
+def train_fidelity_phase(torch):
+    phase(f"24 training fidelity (float32, TF32 off): one step of yolo11n and scrfd_2.5g, golden weights, "
+          f"{FIDELITY_SIZE}x{FIDELITY_SIZE}, batch {FIDELITY_BATCH}, card against CPU")
+    import numpy as np
+
+    from facedet_tpu_torch.engine.detector import _exact_float32
+    from facedet_tpu_torch.train.scrfd_train import scrfd_loss
+    from facedet_tpu_torch.train.yolo_train import compute_loss
+
+    batch = _train_batch(torch, FIDELITY_SIZE, FIDELITY_BATCH, seed=700)
+    for family, loss in (("yolo11n", None), ("scrfd_2.5g", scrfd_loss)):
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            model = _golden_trainee(torch, family, dev)
+            with _exact_float32(True):
+                total, parts = compute_loss(model, *(x.to(dev) for x in batch), loss=loss)
+                total.backward()
+            runs[dev] = ({k: float(v.detach()) for k, v in parts.items()},
+                         {n: p.grad.cpu() for n, p in model.named_parameters()},
+                         {n: b.cpu() for n, b in model.named_buffers() if "running" in n})
+        (want_parts, want_g, want_s), (parts, grads, stats) = runs["cpu"], runs["cuda"]
+        part_err = max(abs(parts[k] - v) / max(abs(v), 1e-12) for k, v in want_parts.items())
+        top = max(float(g.abs().max()) for g in want_g.values())
+        grad_err = max(float((grads[n] - g).abs().max()) / max(float(g.abs().max()), 1e-3 * top)
+                       for n, g in want_g.items())
+        stat_err = max(float(((stats[n] - s).abs() / s.abs().clamp(min=1.0)).max()) for n, s in want_s.items())
+        print(f"{family} train step {FIDELITY_SIZE}x{FIDELITY_SIZE} batch {FIDELITY_BATCH}: loss parts "
+              f"{ {k: round(v, 6) for k, v in want_parts.items()} }; card vs CPU: parts {part_err:.3g} relative, "
+              f"gradients {grad_err:.3g} of each leaf's largest ({len(want_g)} leaves), running statistics "
+              f"{stat_err:.3g} ({len(want_s)} buffers)")
+        check(all(np.isfinite(v) for v in parts.values()), f"{family}: loss parts {parts}")
+        check(part_err <= 1e-4, f"{family}: loss parts card vs CPU {part_err} relative")
+        check(grad_err <= 1e-3, f"{family}: gradients card vs CPU {grad_err} of a leaf's largest")
+        check(stat_err <= 1e-5, f"{family}: BatchNorm running statistics card vs CPU {stat_err}")
+
+
+def train_flops(torch, model, images) -> float:
+    """FLOPs (two per multiply-add) of one forward of ``images`` through the
+    convs and the PSA attention products, counted from the shapes."""
+    from facedet_tpu_torch.models.layers import PSAAttention
+
+    total = [0.0]
+
+    def conv(m, inp, out):
+        total[0] += 2.0 * out.numel() * m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1]
+
+    def attention(m, inp, out):
+        b, _, h, w = inp[0].shape
+        total[0] += 2.0 * b * m.num_heads * (h * w) ** 2 * (m.key_dim + m.head_dim)
+
+    kinds = {torch.nn.Conv2d: conv, PSAAttention: attention}
+    hooks = [m.register_forward_hook(kinds[type(m)]) for m in model.modules() if type(m) in kinds]
+    try:
+        with torch.no_grad():
+            model.eval()(images)
+    finally:
+        for hk in hooks:
+            hk.remove()
+    return total[0]
+
+
+def _time_steps(torch, run, n=TRAIN_STEPS, warmup=TRAIN_WARMUP):
+    """Wall ms of each of ``n`` calls of ``run`` (synchronised), after
+    ``warmup`` calls."""
+    for _ in range(warmup):
+        run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def train_main_path_phase(torch):
+    """The timings run before the profile window: a profiled process may
+    launch more slowly afterwards."""
+    phase(f"25 training main path: yolo11n-pose {TRAIN_SIZE}x{TRAIN_SIZE}, batch {TRAIN_BATCH}, float32, "
+          f"AdamW (make_optimizer), golden weights")
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from facedet_tpu_torch.engine.detector import _exact_float32
+    from facedet_tpu_torch.train.scrfd_train import make_scrfd_train_step
+    from facedet_tpu_torch.train.yolo_train import make_optimizer, make_staged_train_loop, make_train_step
+
+    batch = [x.cuda() for x in _train_batch(torch, TRAIN_SIZE, TRAIN_BATCH, seed=710)]
+    model = _golden_trainee(torch, "yolo11n", "cuda")
+    flops = 3 * train_flops(torch, model, batch[0])
+    tx = make_optimizer(model.parameters(), lr=1e-4)
+    step = make_train_step(model, tx)
+    losses = []
+    run = lambda: losses.append(step(*batch)[0])  # noqa: E731
+    images_u8 = torch.stack([(batch[0] * 255).round().to(torch.uint8)] * 2)
+    staged = [images_u8] + [torch.stack([x] * 2) for x in batch[1:]]
+    with _exact_float32(True):
+        torch.cuda.reset_peak_memory_stats()
+        times = _time_steps(torch, run)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        make_staged_train_loop(model, tx, steps_per_dispatch=2, flip=True)(*staged)  # warm-up of the flip path
+        loop = make_staged_train_loop(model, tx, steps_per_dispatch=STAGED_STEPS, flip=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean = float(loop(*staged, start=1))
+        staged_ms = (time.perf_counter() - t0) * 1e3 / STAGED_STEPS
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32_times = _time_steps(torch, run)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    scrfd = _golden_trainee(torch, "scrfd_2.5g", "cuda")
+    sstep = make_scrfd_train_step(scrfd, make_optimizer(scrfd.parameters(), lr=1e-4))
+    with _exact_float32(True):
+        scrfd_times = _time_steps(torch, lambda: sstep(*batch))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                run()
+            torch.cuda.synchronize()
+        after = _time_steps(torch, run, n=10, warmup=0)
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 3
+    launches = sum(e.count for e in kernels) / 3
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)) and np.isfinite(mean), f"training losses {losses}, staged {mean}")
+    check(device_ms > 0, "the profiler saw no device time in the train step")
+    ms = statistics.median(times)
+    rate = flops / ms / 1e9
+    print(f"make_train_step, yolo11n-pose {TRAIN_SIZE}x{TRAIN_SIZE} batch {TRAIN_BATCH} float32 (TF32 off): median "
+          f"{ms:.3f} ms/step over {len(times)} (min {min(times):.3f}, max {max(times):.3f}), "
+          f"{TRAIN_BATCH / ms * 1e3:.2f} images/s, peak memory {peak:.3f} GB, "
+          f"{flops / 1e12:.4f} TFLOP per step (forward convs and attention x3) = {rate:.2f} TFLOP/s "
+          f"({100 * rate / (F32_FLOPS_PER_S / 1e12):.1f}% of the 67 TFLOP/s float32 peak); loss {losses[0]:.4f} "
+          f"-> {losses[-1]:.4f} over {len(losses)} steps")
+    print(f"make_staged_train_loop, flip=True, {STAGED_STEPS} steps per dispatch (TF32 off): {staged_ms:.3f} ms/step, "
+          f"mean loss {mean:.4f}")
+    print(f"make_train_step with TF32 on (convs and matmuls): median {statistics.median(tf32_times):.3f} ms/step "
+          f"(min {min(tf32_times):.3f}, max {max(tf32_times):.3f})")
+    print(f"make_scrfd_train_step, scrfd_2.5g {TRAIN_SIZE}x{TRAIN_SIZE} batch {TRAIN_BATCH} float32 (TF32 off): median "
+          f"{statistics.median(scrfd_times):.3f} ms/step (min {min(scrfd_times):.3f}, max {max(scrfd_times):.3f})")
+    print(f"profile of 3 yolo11n-pose steps (TF32 off): {launches:.0f} kernel launches per step, device busy "
+          f"{device_ms:.3f} ms/step ({100 * device_ms / ms:.1f}% of the median wall time); the step after the "
+          f"profile window: median {statistics.median(after):.3f} ms over {len(after)} (min {min(after):.3f}, "
+          f"max {max(after):.3f})")
+    for group, keys in PROFILE_GROUPS:
+        ms_g = sum(e.self_device_time_total for e in kernels if any(k in e.key.lower() for k in keys)) / 1e3 / 3
+        n_g = sum(e.count for e in kernels if any(k in e.key.lower() for k in keys)) / 3
+        if ms_g > 0.02 * device_ms:
+            print(f"  {ms_g:8.3f} ms/step {n_g:8.1f} launches  {group}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"  {e.self_device_time_total / 1e3 / 3:8.3f} ms/step  {e.count / 3:6.1f}x  {e.key[:90]}")
+
+
+def learning_phase(torch, root):
+    phase("26 learning proof and export: selftrain_demo --model yolo --steps 300 (96x96, batch 16), then "
+          "YoloTrainer for 2 epochs and its last.npz through YoloV11PoseDetectionModel")
+    import fnmatch
+
+    import numpy as np
+    from PIL import Image
+
+    from facedet_tpu_torch import YoloV11PoseDetectionModel, get_sliced_prediction
+    from facedet_tpu_torch.models.from_jax import load_params_npz
+    from facedet_tpu_torch.models.yolov11 import YoloConfig
+    from facedet_tpu_torch.tools import selftrain_demo
+    from facedet_tpu_torch.train.yolo_trainer import YoloDataset, YoloTrainer
+    from facedet_tpu_torch.utils.synth import synthetic_faces_with_boxes
+
+    patterns = [ln.strip() for ln in open(os.path.join(REPO, ".chiprunignore")) if ln.strip()]
+    for path in (CKPT, SCRFD_CKPT):
+        rel = os.path.relpath(path, REPO)
+        check(not any(fnmatch.fnmatch(rel, p) or rel.startswith(p.rstrip("/") + "/") for p in patterns),
+              f".chiprunignore leaves {rel} out of the copy sent to the card")
+
+    t0 = time.perf_counter()
+    out = selftrain_demo.main(["--model", "yolo", "--steps", "300"])
+    secs = time.perf_counter() - t0
+    before, after = out["before"]["map50"], out["after"]["map50"]
+    print(f"selftrain_demo yolo11n-pose, 300 steps of batch 16 at 96x96 from a seeded init: mAP50 {before:.4f} -> "
+          f"{after:.4f} (mAP {out['after']['map']:.4f}) in {secs:.1f} s with both validations")
+    check(after >= 0.5 and after > before, f"the demo did not learn: mAP50 {before} -> {after}")
+
+    images, labels = os.path.join(root, "train", "images"), os.path.join(root, "train", "labels")
+    os.makedirs(images)
+    os.makedirs(labels)
+    for i in range(8):
+        img, boxes = synthetic_faces_with_boxes(320, 320, seed=720 + i, n=4, size=(40, 90))
+        Image.fromarray(img).save(os.path.join(images, f"{i}.png"))
+        with open(os.path.join(labels, f"{i}.txt"), "w") as f:
+            f.writelines(f"0 {(b[0] + b[2]) / 640:.6f} {(b[1] + b[3]) / 640:.6f} {(b[2] - b[0]) / 320:.6f} "
+                         f"{(b[3] - b[1]) / 320:.6f}\n" for b in boxes)
+    run_dir = os.path.join(root, "run")
+    trainer = YoloTrainer(YoloConfig(scale="n"), lr=1e-4, output_dir=run_dir, save_period=1, image_size=320,
+                          variables=load_params_npz(CKPT))
+    check(trainer.device.type == "cuda", f"YoloTrainer chose {trainer.device}")
+    ds = YoloDataset(images, labels, image_size=320, max_boxes=16, augment=True, seed=0)
+    t0 = time.perf_counter()
+    result = trainer.fit(lambda epoch: ds.batches(4), num_epochs=2, verbose=False)
+    fit_s = time.perf_counter() - t0
+    check(result["epochs"] == 2 and sorted(os.listdir(run_dir)) ==
+          ["best.npz", "config.json", "epoch1.npz", "epoch2.npz", "last.npz", "results.csv"],
+          f"YoloTrainer.fit wrote {sorted(os.listdir(run_dir))}")
+    image = _photo(730)
+    kw = dict(scale="n", dtype="float32", image_size=320, confidence_threshold=0.25)
+    from_file = YoloV11PoseDetectionModel(model_path=os.path.join(run_dir, "last.npz"), device="cuda", **kw)
+    want = get_sliced_prediction(image, trainer.as_detection_model(), **SLICED_KW).detections.to_numpy()
+    got = get_sliced_prediction(image, from_file, **SLICED_KW).detections.to_numpy()
+    check(len(want["boxes"]) > 0, "the fine-tuned model found nothing on the synthetic photo")
+    _compare(got, want, "last.npz against the trained model in memory", "file vs memory")
+    print(f"YoloTrainer: 2 epochs of 2 batches of 4 at 320x320 (augment, mosaic) in {fit_s:.1f} s, losses "
+          f"{[round(h['train_loss'], 4) for h in trainer.history]}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1917,6 +2194,9 @@ def main() -> int:
         det, official_launches = official_eval_phase(torch, models, served, ev, cli_results)
         family_counts["evaluation"] = {"gather_chw": official_launches + dual_tuning_phase(torch, det, ev, cli_results)}
         iqa_phase(ev)
+        train_fidelity_phase(torch)
+        train_main_path_phase(torch)
+        learning_phase(torch, eval_root)
         for family, c in family_counts.items():
             check(c["gather_chw"] > 0, f"the {family} main path did not launch the CHW gather")
             for name, n in c.items():

@@ -11,7 +11,9 @@ engine/pipelines.py. The other detector families live in
 engine/scrfd_wrapper.py, engine/rtdetr_wrapper.py, engine/onnx_wrapper.py and
 engine/fake.py; apps/common.build_detector builds all five. The WIDERFACE
 evaluators, the SAHI tuner and the image-quality metrics (NIQE, BRISQUE,
-TOPIQ's CFANet in models/topiq.py) live in eval/.
+TOPIQ's CFANet in models/topiq.py) live in eval/; training of YOLOv11-pose
+and SCRFD (losses, optimizer, staged loop, checkpoints, ``YoloTrainer``) in
+train/.
 """
 from facedet_tpu_torch.core.detections import Detections
 from facedet_tpu_torch.engine.detector import DetectionModel, YoloV11PoseDetectionModel

@@ -19,6 +19,7 @@ random init from a seeded ``torch.Generator``.
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Any, Optional
 
@@ -36,6 +37,26 @@ from facedet_tpu_torch.engine.prediction import detections_to_object_predictions
 from facedet_tpu_torch.models.init import random_init as _random_init
 
 DEFAULT_CATEGORY_MAPPING = {"0": "face"}
+
+
+def save_params_npz(path: str, variables: dict, half: bool = False) -> None:
+    """Nested variables (flax's ``{"params": ..., "batch_stats": ...}``,
+    numpy arrays, as models/from_jax.to_jax_variables builds them) -> a flat
+    ``a/b/c`` ``.npz``, the format both packages load. ``half=True`` stores
+    float32 as float16, compressed (checkpoints kept as assets)."""
+    flat = {}
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}/{k}" if prefix else k)
+        else:
+            arr = np.asarray(node)
+            flat[prefix] = arr.astype(np.float16) if half and arr.dtype == np.float32 else arr
+
+    walk(variables, "")
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    (np.savez_compressed if half else np.savez)(path, **flat)
 
 
 def resolve_device(device) -> torch.device:

@@ -28,6 +28,14 @@ TOPIQ's CFANet (``load_topiq_variables``) keeps torch's
 projections are packed into ``attn.in_proj_weight [3D, D]`` and
 ``in_proj_bias``, ``out`` becomes ``attn.out_proj``, and the bare
 ``scale_embed{i}`` parameters keep their names.
+
+``to_jax_variables`` goes the other way for the trainers' ``.npz`` export:
+a YOLO or SCRFD state dict becomes the nested flax tree (conv ``OIHW`` ->
+``HWIO``, ``Linear`` ``[out, in]`` -> ``[in, out]``, ``running_*`` ->
+``mean``/``var``, ``weight`` -> ``kernel``/``scale``), which
+engine/detector.save_params_npz writes flat. The attention leaves whose
+head axes were folded (RT-DETR, TOPIQ) and bare parameters are not
+inverted: it raises on them.
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ from torch import nn
 __all__ = [
     "load_params_npz",
     "from_jax_variables",
+    "to_jax_variables",
     "load_jax_variables",
     "load_rrdb_npz",
     "load_topiq_variables",
@@ -114,6 +123,43 @@ def from_jax_variables(tree: dict) -> dict[str, torch.Tensor]:
             arr = arr.reshape(-1)
         state[".".join(path[1:-1] + (name,))] = torch.from_numpy(np.ascontiguousarray(arr))
     return state
+
+
+def to_jax_variables(state: dict[str, torch.Tensor]) -> dict:
+    """Torch state dict -> nested flax variables {params, batch_stats} of
+    numpy float32 arrays, the inverse of ``from_jax_variables`` for convs,
+    dense layers and norms. BatchNorm step counters are dropped (flax keeps
+    none); a leaf it cannot invert raises ``NotImplementedError``."""
+    tree: dict = {}
+    for key, value in state.items():
+        *mods, leaf = key.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        if not mods or leaf.startswith(("in_proj_", "out_proj")) or (
+            len(mods) >= 2 and mods[-2] == "attn" and mods[-1] in ("query", "key", "value", "out")
+        ):
+            raise NotImplementedError(
+                f"{key}: attention and bare leaves are not inverted yet (RT-DETR and TOPIQ export)"
+            )
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if leaf == "running_mean":
+            collection, name = "batch_stats", "mean"
+        elif leaf == "running_var":
+            collection, name = "batch_stats", "var"
+        elif leaf == "bias":
+            collection, name = "params", "bias"
+        elif leaf == "weight" and arr.ndim == 1:
+            collection, name = "params", "scale"
+        elif leaf == "weight" and arr.ndim in (2, 4):
+            collection, name = "params", "kernel"
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        else:
+            raise NotImplementedError(f"{key}: no flax leaf for a {arr.ndim}-d {leaf!r}")
+        node = tree.setdefault(collection, {})
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[name] = np.ascontiguousarray(arr)
+    return tree
 
 
 def load_jax_variables(module: nn.Module, tree: dict) -> None:

@@ -5,7 +5,8 @@ names (``cv1``, ``m0``, ``attn.qkv``, ``bn`` ...), so a flax variable path maps
 onto a state-dict key mechanically (models/from_jax.py). Flax infers input
 channels; here each block is given them.
 
-Parity notes: BatchNorm eps is 1e-3; ``padding=k//2`` is symmetric in both
+Parity notes: BatchNorm eps is 1e-3 and, in train mode, flax's statistics
+(``FlaxBatchNorm2d``, momentum 0.97); ``padding=k//2`` is symmetric in both
 frameworks; max-pool pads with -inf; in ``PSAAttention`` the qkv channels are
 split per head as ``[heads, 2*key_dim + head_dim]``, as in the NHWC original.
 """
@@ -16,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = [
+    "FlaxBatchNorm2d",
     "make_divisible",
     "ConvBnAct",
     "Bottleneck",
@@ -33,8 +35,41 @@ def make_divisible(x: float, divisor: int = 8) -> int:
     return max(divisor, int(x + divisor / 2) // divisor * divisor)
 
 
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's ``nn.BatchNorm`` in train mode.
+
+    Eval mode is ``nn.BatchNorm2d``'s, on the running statistics. In train
+    mode the batch statistics are taken in float32 as flax's
+    ``_compute_stats`` takes them: the mean and the fast variance
+    ``E[x^2] - E[x]^2`` clipped at 0, which is the biased variance. The
+    input is normalised with them, and the running statistics move as
+    ``running = m * running + (1 - m) * batch`` with flax's momentum ``m``,
+    the variance from the biased one too (torch's own update uses the
+    unbiased variance and ``1 - m``). The parameter and buffer names are
+    ``nn.BatchNorm2d``'s, so state dicts and flax checkpoints load
+    unchanged; ``num_batches_tracked`` stays as it is (flax keeps no
+    counter, and nothing reads it while a momentum is set)."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, flax_momentum: float = 0.99):
+        super().__init__(num_features, eps=eps, momentum=1.0 - flax_momentum)
+        self.flax_momentum = flax_momentum
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        x = x.float()
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.clamp(x.square().mean(dim=(0, 2, 3)) - mean.square(), min=0.0)
+        with torch.no_grad():
+            m = self.flax_momentum
+            self.running_mean.mul_(m).add_(mean, alpha=1 - m)
+            self.running_var.mul_(m).add_(var, alpha=1 - m)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return torch.addcmul(self.bias[:, None, None], x - mean[:, None, None], mul[:, None, None])
+
+
 class ConvBnAct(nn.Module):
-    """Conv2d(bias=False) + BatchNorm (inference statistics) + SiLU.
+    """Conv2d(bias=False) + BatchNorm (flax's, momentum 0.97) + SiLU.
 
     The conv runs in its weight's dtype (flax's ``dtype``). The BatchNorm
     keeps float32 statistics and normalises in float32, as flax does (the
@@ -46,7 +81,7 @@ class ConvBnAct(nn.Module):
         self.conv = nn.Conv2d(
             cin, cout, kernel, stride=stride, padding=kernel // 2, groups=groups, bias=False
         )
-        self.bn = nn.BatchNorm2d(cout, eps=1e-3)
+        self.bn = FlaxBatchNorm2d(cout, eps=1e-3, flax_momentum=0.97)
         self.act = act
         self.bn_dtype = torch.float32
 

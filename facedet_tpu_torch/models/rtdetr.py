@@ -16,7 +16,8 @@ load by name through models/from_jax.py. The module owns ``dn_embed`` so that
 checkpoints load; the contrastive-denoising branch itself (``dn_labels``) is
 training only and not yet ported.
 
-Parity notes: BatchNorm eps 1e-5 and LayerNorm eps 1e-6 (flax's defaults);
+Parity notes: BatchNorm eps 1e-5 and LayerNorm eps 1e-6 (flax's defaults),
+flax's train-mode BatchNorm statistics (momentum 0.99, ``FlaxBatchNorm2d``);
 GELU is the tanh approximation; convs and linears run in the config's dtype,
 the norms, the softmax of the sampling weights, the accumulation of samples
 and the box refinement in float32; queries and keys carry the positional
@@ -36,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from facedet_tpu_torch.models.init import random_init
+from facedet_tpu_torch.models.layers import FlaxBatchNorm2d
 
 __all__ = [
     "RtDetrConfig",
@@ -108,7 +110,7 @@ class ConvBnRelu(nn.Module):
     def __init__(self, cin: int, features: int, kernel: int = 3, stride: int = 1):
         super().__init__()
         self.Conv_0 = nn.Conv2d(cin, features, kernel, stride=stride, padding=kernel // 2, bias=False)
-        self.BatchNorm_0 = nn.BatchNorm2d(features)
+        self.BatchNorm_0 = FlaxBatchNorm2d(features)
 
     def forward(self, x):
         return torch.relu(self.BatchNorm_0(_in(self.Conv_0, x).float()))
@@ -129,11 +131,11 @@ class Backbone(nn.Module):
                 p = f"s{stage}_c{i}"
                 setattr(self, p + "a", ConvBnRelu(cin, w, 3, stride))
                 setattr(self, p + "b", nn.Conv2d(w, w, 3, padding=1, bias=False))
-                setattr(self, p + "bn", nn.BatchNorm2d(w))
+                setattr(self, p + "bn", FlaxBatchNorm2d(w))
                 project = cin != w or stride != 1
                 if project:
                     setattr(self, p + "p", nn.Conv2d(cin, w, 1, stride=stride, bias=False))
-                    setattr(self, p + "pbn", nn.BatchNorm2d(w))
+                    setattr(self, p + "pbn", FlaxBatchNorm2d(w))
                 names.append((p, project))
                 cin = w
             self.blocks.append(names)

@@ -13,8 +13,9 @@ Submodules carry the flax names, the auto-named ones included
 ``scrfd_2_5g_golden.npz`` loads by name through models/from_jax.py.
 
 Parity notes: BatchNorm eps is 1e-5 and GroupNorm eps 1e-6 (flax's
-defaults); convs run in the config's dtype, the norms in float32, and the
-head's maps are float32; the input is normalised ``(x*255 - 127.5)/128``
+defaults), and in train mode BatchNorm is flax's (momentum 0.99,
+``FlaxBatchNorm2d``); convs run in the config's dtype, the norms in float32,
+and the head's maps are float32; the input is normalised ``(x*255 - 127.5)/128``
 inside the model; the top-down upsample is cropped to the lateral's size,
 which covers odd feature maps.
 """
@@ -26,7 +27,7 @@ import torch
 from torch import nn
 
 from facedet_tpu_torch.models.init import random_init
-from facedet_tpu_torch.models.layers import upsample2x
+from facedet_tpu_torch.models.layers import FlaxBatchNorm2d, upsample2x
 
 __all__ = [
     "STRIDES",
@@ -78,8 +79,8 @@ def _conv(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return m(x.to(m.weight.dtype))
 
 
-def _bn(m: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    """BatchNorm in float32 on inference statistics, float32 out."""
+def _bn(m: FlaxBatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """BatchNorm in float32, float32 out (flax's, momentum 0.99, in train mode)."""
     return m(x.float())
 
 
@@ -87,13 +88,13 @@ class ResBlock(nn.Module):
     def __init__(self, cin: int, features: int, stride: int = 1):
         super().__init__()
         self.Conv_0 = nn.Conv2d(cin, features, 3, stride=stride, padding=1, bias=False)
-        self.BatchNorm_0 = nn.BatchNorm2d(features)
+        self.BatchNorm_0 = FlaxBatchNorm2d(features)
         self.Conv_1 = nn.Conv2d(features, features, 3, padding=1, bias=False)
-        self.BatchNorm_1 = nn.BatchNorm2d(features)
+        self.BatchNorm_1 = FlaxBatchNorm2d(features)
         self.project = cin != features or stride != 1
         if self.project:
             self.Conv_2 = nn.Conv2d(cin, features, 1, stride=stride, bias=False)
-            self.BatchNorm_2 = nn.BatchNorm2d(features)
+            self.BatchNorm_2 = FlaxBatchNorm2d(features)
 
     def forward(self, x):
         y = torch.relu(_bn(self.BatchNorm_0, _conv(self.Conv_0, x)))
@@ -107,7 +108,7 @@ class ScrfdBackbone(nn.Module):
     def __init__(self, cfg: ScrfdConfig):
         super().__init__()
         self.stem = nn.Conv2d(3, cfg.stem, 3, stride=2, padding=1, bias=False)
-        self.stem_bn = nn.BatchNorm2d(cfg.stem)
+        self.stem_bn = FlaxBatchNorm2d(cfg.stem)
         self.blocks: list[list[str]] = []
         cin = cfg.stem
         for stage, (w, d) in enumerate(zip(cfg.widths, cfg.depths)):

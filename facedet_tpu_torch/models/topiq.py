@@ -25,7 +25,8 @@ torch checkpoint in that layout loads with ``load_state_dict(strict=True)``;
 flax variables go in through ``models/from_jax.load_topiq_variables``.
 
 Parity with flax: tokens are taken from NHWC order (a map is permuted before
-it is flattened); BatchNorm eps 1e-5 (flax's default) and float32, LayerNorm
+it is flattened); BatchNorm eps 1e-5 (flax's default) and float32, with
+flax's train-mode statistics (momentum 0.99, ``FlaxBatchNorm2d``), LayerNorm
 eps 1e-5 and float32, exact GELU; convs and linears run in the config's
 dtype, the ImageNet normalisation in that dtype after the cast, the sigmoid
 in float32.
@@ -38,6 +39,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from facedet_tpu_torch.models.layers import FlaxBatchNorm2d
 
 __all__ = [
     "TopiqConfig",
@@ -76,7 +79,7 @@ def _in(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return m(x.to(m.weight.dtype))
 
 
-def _bn(m: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+def _bn(m: FlaxBatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     """BatchNorm in float32 (flax: ``dtype=jnp.float32``)."""
     return m(x.float())
 
@@ -89,16 +92,16 @@ class BottleneckRes(nn.Module):
         super().__init__()
         width = features // 4
         self.conv1 = nn.Conv2d(cin, width, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(width, eps=1e-5)
+        self.bn1 = FlaxBatchNorm2d(width, eps=1e-5)
         self.conv2 = nn.Conv2d(width, width, 3, stride, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(width, eps=1e-5)
+        self.bn2 = FlaxBatchNorm2d(width, eps=1e-5)
         self.conv3 = nn.Conv2d(width, features, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(features, eps=1e-5)
+        self.bn3 = FlaxBatchNorm2d(features, eps=1e-5)
         self.has_down = cin != features or stride != 1
         if self.has_down:
             # flax's "SAME" pads a 1x1 kernel by nothing, at any stride
             self.down_conv = nn.Conv2d(cin, features, 1, stride, bias=False)
-            self.down_bn = nn.BatchNorm2d(features, eps=1e-5)
+            self.down_bn = FlaxBatchNorm2d(features, eps=1e-5)
 
     def forward(self, x):
         y = torch.relu(_bn(self.bn1, _in(self.conv1, x)))
@@ -116,7 +119,7 @@ class ResNet50(nn.Module):
         super().__init__()
         self.stage_depths = tuple(cfg.stage_depths)
         self.stem_conv = nn.Conv2d(3, 64, 7, 2, padding=3, bias=False)
-        self.stem_bn = nn.BatchNorm2d(64, eps=1e-5)
+        self.stem_bn = FlaxBatchNorm2d(64, eps=1e-5)
         cin = 64
         for s, (ch, depth) in enumerate(zip(cfg.stage_channels, cfg.stage_depths)):
             for b in range(depth):

@@ -1,0 +1,25 @@
+"""Training of YOLOv11-pose and SCRFD (counterpart of facedet_tpu/train/).
+
+RT-DETR and SR training are not ported yet."""
+from facedet_tpu_torch.train.checkpoint import CheckpointManager
+from facedet_tpu_torch.train.scrfd_train import make_scrfd_staged_loop, make_scrfd_train_step, scrfd_loss
+from facedet_tpu_torch.train.yolo_train import (
+    make_optimizer,
+    make_staged_train_loop,
+    make_train_step,
+    yolo_loss,
+)
+from facedet_tpu_torch.train.yolo_trainer import YoloDataset, YoloTrainer
+
+__all__ = [
+    "CheckpointManager",
+    "make_optimizer",
+    "make_scrfd_staged_loop",
+    "make_scrfd_train_step",
+    "make_staged_train_loop",
+    "make_train_step",
+    "scrfd_loss",
+    "yolo_loss",
+    "YoloDataset",
+    "YoloTrainer",
+]
