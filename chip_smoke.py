@@ -111,7 +111,33 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    a YoloTrainer run of 2 epochs on 8 staged images, its last.npz loaded
    through YoloV11PoseDetectionModel gives the in-memory model's detections;
    .chiprunignore must not list the golden checkpoints;
-27. report: the wall seconds of every phase, a ``kernels`` JSON line, the nvidia-smi line, and last the
+27. RT-DETR and SR training fidelity (float32, TF32 off), the card against
+   the CPU, each beside a TF32 run on the card that its gradient gate must
+   catch: one CDN step (5 groups) of rtdetr-tiny from the seeded init at
+   256x256, batch 2, greedy matcher, the card given the CPU's query
+   selection: its own greedy assignments equal the CPU's at every GT slot,
+   then given the CPU's, loss parts, gradients and BatchNorm statistics
+   under phase 24's fixed gates (the seeded rtdetr-l is chaotic in float32:
+   one ulp of input moves its gradients by a fifth of a leaf's largest);
+   one G and one D step of RealESRGAN_x2plus (golden) with
+   PatchDiscriminator(64) and the perceptual term on two 64x64 patches: the
+   four metrics, G's and D's gradients (error norm over norm), the
+   spectral-norm u and sigma;
+28. RT-DETR and SR training at full width: rtdetr-l, 640x640, batch 8, 12
+   faces per image, CDN, AdamW lr 1e-4 (clip 0.1), greedy matcher, float32:
+   ms per step (median of 10 after 3), images per second, peak memory,
+   launches and device busy per step (a profile by kernel group), TFLOP/s
+   from FLOPs counted from shapes; the staged loop with flip; the greedy
+   matcher alone; RealESRGAN_x2plus (golden) through the staged loop, HR
+   128, batch 16, Adam with clip 5, EMA 0.999, then its GAN step with the
+   perceptual term, each with ms (median of 10 after 2), patches per
+   second, a profile, TFLOP/s and peak memory;
+29. learning proof: selftrain_demo --model rtdetr (rtdetr-tiny, 300 steps of
+   batch 16 at 96x96, CDN) must raise mAP50 and bring the mean loss of its
+   last 20 steps under 70% of its first 20; an RtDetrTrainer run of 2
+   epochs whose last.npz gives the in-memory model's detections; a narrow
+   SR net whose loss falls under 70% of its first in 40 steps;
+30. report: the wall seconds of every phase, a ``kernels`` JSON line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 It imports nothing of jax or facedet_tpu and needs the checkout: run alone
@@ -119,6 +145,7 @@ it fails.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -1933,6 +1960,22 @@ def _golden_trainee(torch, family, device):
     return model.to(device)
 
 
+def _train_errors(runs):
+    """Card against CPU of one training step, ``runs[device] = (loss parts,
+    gradients, statistics)``: the parts' largest relative error, the
+    gradients' largest error over each leaf's largest |g| (at least 1e-3 of
+    the largest over all leaves), the statistics' largest error relative to
+    max(|value|, 1), and the leaf of the largest gradient error."""
+    (want_parts, want_g, want_s), (parts, grads, stats) = runs["cpu"], runs["cuda"]
+    check(set(grads) == set(want_g) and set(stats) == set(want_s), "card and CPU differ in their leaves")
+    part_err = max(abs(parts[k] - v) / max(abs(v), 1e-12) for k, v in want_parts.items())
+    top = max(float(g.abs().max()) for g in want_g.values())
+    grad_err, worst = max((float((grads[n] - g).abs().max()) / max(float(g.abs().max()), 1e-3 * top), n)
+                          for n, g in want_g.items())
+    stat_err = max(float(((stats[n] - s).abs() / s.abs().clamp(min=1.0)).max()) for n, s in want_s.items())
+    return part_err, grad_err, stat_err, worst
+
+
 def train_fidelity_phase(torch):
     phase(f"24 training fidelity (float32, TF32 off): one step of yolo11n and scrfd_2.5g, golden weights, "
           f"{FIDELITY_SIZE}x{FIDELITY_SIZE}, batch {FIDELITY_BATCH}, card against CPU")
@@ -1954,11 +1997,7 @@ def train_fidelity_phase(torch):
                          {n: p.grad.cpu() for n, p in model.named_parameters()},
                          {n: b.cpu() for n, b in model.named_buffers() if "running" in n})
         (want_parts, want_g, want_s), (parts, grads, stats) = runs["cpu"], runs["cuda"]
-        part_err = max(abs(parts[k] - v) / max(abs(v), 1e-12) for k, v in want_parts.items())
-        top = max(float(g.abs().max()) for g in want_g.values())
-        grad_err = max(float((grads[n] - g).abs().max()) / max(float(g.abs().max()), 1e-3 * top)
-                       for n, g in want_g.items())
-        stat_err = max(float(((stats[n] - s).abs() / s.abs().clamp(min=1.0)).max()) for n, s in want_s.items())
+        part_err, grad_err, stat_err, _ = _train_errors(runs)
         print(f"{family} train step {FIDELITY_SIZE}x{FIDELITY_SIZE} batch {FIDELITY_BATCH}: loss parts "
               f"{ {k: round(v, 6) for k, v in want_parts.items()} }; card vs CPU: parts {part_err:.3g} relative, "
               f"gradients {grad_err:.3g} of each leaf's largest ({len(want_g)} leaves), running statistics "
@@ -1970,28 +2009,10 @@ def train_fidelity_phase(torch):
 
 
 def train_flops(torch, model, images) -> float:
-    """FLOPs (two per multiply-add) of one forward of ``images`` through the
-    convs and the PSA attention products, counted from the shapes."""
-    from facedet_tpu_torch.models.layers import PSAAttention
-
-    total = [0.0]
-
-    def conv(m, inp, out):
-        total[0] += 2.0 * out.numel() * m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1]
-
-    def attention(m, inp, out):
-        b, _, h, w = inp[0].shape
-        total[0] += 2.0 * b * m.num_heads * (h * w) ** 2 * (m.key_dim + m.head_dim)
-
-    kinds = {torch.nn.Conv2d: conv, PSAAttention: attention}
-    hooks = [m.register_forward_hook(kinds[type(m)]) for m in model.modules() if type(m) in kinds]
-    try:
-        with torch.no_grad():
-            model.eval()(images)
-    finally:
-        for hk in hooks:
-            hk.remove()
-    return total[0]
+    """FLOPs (two per multiply-add) of one eval-mode forward of ``images``
+    through the convs and the PSA attention products, counted from the
+    shapes."""
+    return shape_flops(torch, model, lambda: model.eval()(images))
 
 
 def _time_steps(torch, run, n=TRAIN_STEPS, warmup=TRAIN_WARMUP):
@@ -2015,7 +2036,6 @@ def train_main_path_phase(torch):
     phase(f"25 training main path: yolo11n-pose {TRAIN_SIZE}x{TRAIN_SIZE}, batch {TRAIN_BATCH}, float32, "
           f"AdamW (make_optimizer), golden weights")
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from facedet_tpu_torch.engine.detector import _exact_float32
     from facedet_tpu_torch.train.scrfd_train import make_scrfd_train_step
@@ -2040,28 +2060,17 @@ def train_main_path_phase(torch):
         t0 = time.perf_counter()
         mean = float(loop(*staged, start=1))
         staged_ms = (time.perf_counter() - t0) * 1e3 / STAGED_STEPS
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
-    try:
+    with _tf32(torch):
         tf32_times = _time_steps(torch, run)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
     scrfd = _golden_trainee(torch, "scrfd_2.5g", "cuda")
     sstep = make_scrfd_train_step(scrfd, make_optimizer(scrfd.parameters(), lr=1e-4))
+    ms = statistics.median(times)
     with _exact_float32(True):
         scrfd_times = _time_steps(torch, lambda: sstep(*batch))
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                run()
-            torch.cuda.synchronize()
+        _step_profile(torch, run, ms, "yolo11n-pose", n=3, top=6, host=True)
         after = _time_steps(torch, run, n=10, warmup=0)
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 3
-    launches = sum(e.count for e in kernels) / 3
     losses = [float(x) for x in losses]
     check(all(np.isfinite(losses)) and np.isfinite(mean), f"training losses {losses}, staged {mean}")
-    check(device_ms > 0, "the profiler saw no device time in the train step")
-    ms = statistics.median(times)
     rate = flops / ms / 1e9
     print(f"make_train_step, yolo11n-pose {TRAIN_SIZE}x{TRAIN_SIZE} batch {TRAIN_BATCH} float32 (TF32 off): median "
           f"{ms:.3f} ms/step over {len(times)} (min {min(times):.3f}, max {max(times):.3f}), "
@@ -2075,17 +2084,8 @@ def train_main_path_phase(torch):
           f"(min {min(tf32_times):.3f}, max {max(tf32_times):.3f})")
     print(f"make_scrfd_train_step, scrfd_2.5g {TRAIN_SIZE}x{TRAIN_SIZE} batch {TRAIN_BATCH} float32 (TF32 off): median "
           f"{statistics.median(scrfd_times):.3f} ms/step (min {min(scrfd_times):.3f}, max {max(scrfd_times):.3f})")
-    print(f"profile of 3 yolo11n-pose steps (TF32 off): {launches:.0f} kernel launches per step, device busy "
-          f"{device_ms:.3f} ms/step ({100 * device_ms / ms:.1f}% of the median wall time); the step after the "
-          f"profile window: median {statistics.median(after):.3f} ms over {len(after)} (min {min(after):.3f}, "
-          f"max {max(after):.3f})")
-    for group, keys in PROFILE_GROUPS:
-        ms_g = sum(e.self_device_time_total for e in kernels if any(k in e.key.lower() for k in keys)) / 1e3 / 3
-        n_g = sum(e.count for e in kernels if any(k in e.key.lower() for k in keys)) / 3
-        if ms_g > 0.02 * device_ms:
-            print(f"  {ms_g:8.3f} ms/step {n_g:8.1f} launches  {group}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-        print(f"  {e.self_device_time_total / 1e3 / 3:8.3f} ms/step  {e.count / 3:6.1f}x  {e.key[:90]}")
+    print(f"the yolo11n-pose step after the profile window: median {statistics.median(after):.3f} ms over "
+          f"{len(after)} (min {min(after):.3f}, max {max(after):.3f})")
 
 
 def learning_phase(torch, root):
@@ -2148,6 +2148,406 @@ def learning_phase(torch, root):
           f"{[round(h['train_loss'], 4) for h in trainer.history]}")
 
 
+DETR_GROUPS = 5  # CDN groups, selftrain_demo's default
+# phase 27 holds rtdetr-tiny: the seeded rtdetr-l is chaotic in float32 (one ulp of input moves
+# its gradients by a fifth of a leaf's largest), rtdetr-tiny at 256x256 is not
+DETR_FIDELITY, DETR_FIDELITY_SIZE = "rtdetr-tiny", 256
+# fixed gates (parts relative, gradients of each leaf's largest / error norm over norm,
+# statistics), set between the float32 card's readings and the TF32 control's (PERF.md)
+DETR_GATES = (1e-4, 1e-3, 1e-5)
+GAN_GATES = (1e-4, 1e-3, 1e-5)
+DETR_STEPS, DETR_STAGED, SR_STEPS = 10, 4, 10
+DETR_DEMO_STEPS = 300
+SR_HR, SR_BATCH = 128, 16  # tools/sr_golden_train.py's defaults
+
+
+def _detr_batch(torch, size, b, seed):
+    """``_train_batch``'s images with their boxes as normalised cxcywh."""
+    from facedet_tpu_torch.train.rtdetr_train import xyxy_to_cxcywh
+
+    images, boxes, mask, _ = _train_batch(torch, size, b, seed)
+    return images, xyxy_to_cxcywh(boxes, float(size)), mask
+
+
+def _cdn_noise(torch, b, m, seed):
+    """Seeded CDN noise (``part`` uniform in [0, 1), ``sign`` +-1), the
+    inputs that JAX draws from its key."""
+    gen = torch.Generator().manual_seed(seed)
+    shape = (b, DETR_GROUPS, 2, m, 4)
+    return torch.rand(shape, generator=gen), (torch.randint(0, 2, shape, generator=gen) * 2 - 1).float()
+
+
+def _sr_patches(torch, n, hr, seed):
+    """(lr_u8, hr_u8) of ``n`` patches from seeded photos through the host
+    degradation model (train/sr_train.build_sr_dataset), x2."""
+    from facedet_tpu_torch.train.sr_train import build_sr_dataset
+
+    photos = [_photo(seed + i, hw=(512, 768), n=12, size=(60, 160)) for i in range(2)]
+    lr, hr_ = build_sr_dataset(photos, n, hr, 2, seed=seed)
+    return torch.from_numpy(lr), torch.from_numpy(hr_)
+
+
+def _golden_x2(torch, device):
+    from facedet_tpu_torch.engine.enhancer import _golden_ckpt_path
+    from facedet_tpu_torch.models.from_jax import load_rrdb_npz
+    from facedet_tpu_torch.models.rrdbnet import MODEL_CATALOG, RRDBNet
+
+    g = RRDBNet(MODEL_CATALOG["RealESRGAN_x2plus"])
+    load_rrdb_npz(g, _golden_ckpt_path("RealESRGAN_x2plus"))
+    return g.to(device)
+
+
+def shape_flops(torch, model, run) -> float:
+    """FLOPs (two per multiply-add) of the convs, linear layers and
+    attention products (YOLO's PSA, RT-DETR's multi-head) of ``model`` in one
+    ``run()`` under no_grad, counted from the shapes."""
+    from facedet_tpu_torch.models.layers import PSAAttention
+    from facedet_tpu_torch.models.rtdetr import MultiHeadAttention
+
+    total = [0.0]
+
+    def conv(m, inp, out):
+        total[0] += 2.0 * out.numel() * m.in_channels // m.groups * m.kernel_size[0] * m.kernel_size[1]
+
+    def linear(m, inp, out):
+        total[0] += 2.0 * out.numel() * m.in_features
+
+    def psa(m, inp, out):
+        b, _, h, w = inp[0].shape
+        total[0] += 2.0 * b * m.num_heads * (h * w) ** 2 * (m.key_dim + m.head_dim)
+
+    def attention(m, inp, out):
+        b, nq, d = inp[0].shape
+        total[0] += 4.0 * b * nq * inp[1].shape[1] * d  # q k^T and the weighted sum
+
+    kinds = ((torch.nn.Conv2d, conv), (torch.nn.Linear, linear), (PSAAttention, psa), (MultiHeadAttention, attention))
+    hooks = [m.register_forward_hook(hook) for m in model.modules() for kind, hook in kinds if isinstance(m, kind)]
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        for hk in hooks:
+            hk.remove()
+    return total[0]
+
+
+def _step_profile(torch, run, ms, label, n=2, top=0, host=False):
+    """Launches and device-busy ms per ``run()`` from the profiler, their
+    share of the wall ``ms`` (TF32 as the caller set it), the groups above 2%
+    of the device time and the ``top`` kernels. With ``host`` the profiler
+    records host activity too, which slows a window of many launches by
+    seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * host) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    launches = sum(e.count for e in kernels) / n
+    check(device_ms > 0, f"{label}: the profiler saw no device time")
+    print(f"profile of {n} {label} steps: {launches:.0f} kernel launches per step, device busy {device_ms:.3f} ms/step "
+          f"({100 * device_ms / ms:.1f}% of the median wall time)")
+    for group, keys in PROFILE_GROUPS:
+        ms_g = sum(e.self_device_time_total for e in kernels if any(k in e.key.lower() for k in keys)) / 1e3 / n
+        n_g = sum(e.count for e in kernels if any(k in e.key.lower() for k in keys)) / n
+        if ms_g > 0.02 * device_ms:
+            print(f"  {ms_g:8.3f} ms/step {n_g:8.1f} launches  {group}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/step  {e.count / n:6.1f}x  {e.key[:90]}")
+    return launches, device_ms
+
+
+@contextlib.contextmanager
+def _tf32(torch):
+    """TF32 on for cuBLAS and cuDNN while open; the previous settings are
+    restored on exit."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def detr_sr_fidelity_phase(torch):
+    phase(f"27 training fidelity (float32, TF32 off), card against CPU: one CDN step of {DETR_FIDELITY} (seeded, "
+          f"{DETR_FIDELITY_SIZE}x{DETR_FIDELITY_SIZE}, batch {FIDELITY_BATCH}, greedy matcher, the CPU's query selection) "
+          f"and one G and D step of RealESRGAN_x2plus (golden) with PatchDiscriminator(64) and the perceptual term; "
+          f"each beside a TF32 control")
+    import copy
+
+    import numpy as np
+
+    from facedet_tpu_torch.engine.detector import _exact_float32
+    from facedet_tpu_torch.models.rtdetr import RTDETR_VARIANTS, create_rtdetr
+    from facedet_tpu_torch.train.perceptual import make_yolo_feature_loss
+    from facedet_tpu_torch.train.rtdetr_train import layer_assignments, train_loss
+    from facedet_tpu_torch.train.sr_gan import SpectralNormConv2d, create_discriminator, make_sr_gan_staged_loop
+
+    images, boxes, mask = _detr_batch(torch, DETR_FIDELITY_SIZE, FIDELITY_BATCH, seed=740)
+    part, sign = _cdn_noise(torch, FIDELITY_BATCH, boxes.shape[1], seed=741)
+    # the CPU; the card in float32 and in TF32 (the control a gate must catch); the CPU with
+    # the images moved by about one ulp, which reads how far rounding alone moves this model
+    nudged = images * (1 + 6e-8 * torch.randn(images.shape, generator=torch.Generator().manual_seed(745)))
+    exact = lambda: _exact_float32(True)  # noqa: E731
+    runs, assigns, top_idx, matcher = {}, {}, None, "greedy"
+    for key, dev, x, precision in (("cpu", "cpu", images, exact), ("cuda", "cuda", images, exact),
+                                   ("tf32", "cuda", images, lambda: _tf32(torch)), ("nudged", "cpu", nudged, exact)):
+        model = create_rtdetr(RTDETR_VARIANTS[DETR_FIDELITY], seed=7).to(dev)
+        bx, mk = boxes.to(dev), mask.to(dev)
+        with precision():
+            total, parts, outs = train_loss(model, x.to(dev), bx, mk, DETR_GROUPS, part=part, sign=sign,
+                                            matcher=matcher, top_idx=None if top_idx is None else top_idx.to(dev))
+            total.backward()
+        assigns[key] = [layer_assignments(lg.detach(), bb.detach(), bx, mk, "greedy").cpu()
+                        for lg, bb in zip(outs["logits"], outs["boxes"])]
+        if key == "cpu":  # the later runs take the CPU's query selection and matching
+            top_idx = outs["top_idx"]
+            matcher = lambda cost: next(given).to(cost.device)  # noqa: E731
+        given = iter(assigns["cpu"])
+        runs[key] = ({k: float(v.detach()) for k, v in parts.items()},
+                     {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None},
+                     {n: b.cpu() for n, b in model.named_buffers() if "running" in n})
+    moved = {key: sum(int((a != b).sum()) for a, b in zip(assigns["cpu"], assigns[key]))
+             for key in ("cuda", "tf32", "nudged")}
+    readings = {key: _train_errors({"cpu": runs["cpu"], "cuda": runs[key]}) for key in ("cuda", "tf32", "nudged")}
+    n_slots = sum(a.numel() for a in assigns["cpu"])
+    show = lambda r: f"parts {r[0]:.3g} relative, gradients {r[1]:.3g} of each leaf's largest ({r[3]}), " \
+                     f"running statistics {r[2]:.3g}"  # noqa: E731
+    print(f"{DETR_FIDELITY} CDN step {DETR_FIDELITY_SIZE}x{DETR_FIDELITY_SIZE} batch {FIDELITY_BATCH}, {boxes.shape[1]} GT "
+          f"per image, {DETR_GROUPS} groups, loss parts { {k: round(v, 6) for k, v in runs['cpu'][0].items()} } "
+          f"({len(runs['cpu'][1])} leaves with a gradient, {len(runs['cpu'][2])} statistics): own greedy matching "
+          f"against the CPU's at {n_slots} GT slots of {len(assigns['cpu'])} decoder layers moves {moved['cuda']} (card), "
+          f"{moved['tf32']} (TF32 control), {moved['nudged']} (CPU with one-ulp-nudged images); given the CPU's selection "
+          f"and matching, against the CPU: card {show(readings['cuda'])}; TF32 control {show(readings['tf32'])}; nudged "
+          f"CPU {show(readings['nudged'])}; gates {DETR_GATES}")
+    check(all(np.isfinite(v) for v in runs["cuda"][0].values()), f"{DETR_FIDELITY}: loss parts {runs['cuda'][0]}")
+    check(moved["cuda"] == 0, f"{DETR_FIDELITY}: the card's greedy matching moved {moved['cuda']} GT slots")
+    for what, err, gate in zip(("loss parts", "gradients", "BatchNorm running statistics"), readings["cuda"], DETR_GATES):
+        check(err <= gate, f"{DETR_FIDELITY}: {what} card vs CPU {err}, gate {gate}")
+    check(readings["tf32"][1] > DETR_GATES[1], f"{DETR_FIDELITY}: the TF32 control's gradients pass the gate")
+
+    lr_u8, hr_u8 = _sr_patches(torch, 2, 64, seed=742)
+    runs = {}
+    for key, dev, precision in (("cpu", "cpu", exact), ("cuda", "cuda", exact), ("tf32", "cuda", lambda: _tf32(torch))):
+        g = _golden_x2(torch, dev)
+        d = create_discriminator(64, seed=744).to(dev)
+        run = make_sr_gan_staged_loop(g, d, torch.optim.SGD(g.parameters(), lr=0.0), torch.optim.SGD(d.parameters(), lr=0.0),
+                                      steps_per_dispatch=1, flip=False, percep_fn=make_yolo_feature_loss(device=dev))
+        with precision():
+            metrics = run(copy.deepcopy(g), lr_u8[None].to(dev), hr_u8[None].to(dev))
+        runs[key] = ({k: float(v) for k, v in metrics.items()},
+                     {f"{net}.{n}": p.grad.cpu() for net, m in (("G", g), ("D", d)) for n, p in m.named_parameters()},
+                     {f"{n}.{leaf}": getattr(m, leaf).cpu() for n, m in d.named_modules()
+                      if isinstance(m, SpectralNormConv2d) for leaf in ("u", "sigma")})
+
+    def gan_errors(key):
+        """Metrics (relative), per network the gradients' error norm over
+        their norm, u and sigma, and the largest per-leaf error: some deep
+        RRDB leaves hold gradients 1e-3 of the largest, summed from far
+        larger terms, where the CPU's own float32 result lies 2% of the
+        leaf's largest from float64, so the gate reads the norms."""
+        part_err, grad_err, stat_err, worst = _train_errors({"cpu": runs["cpu"], "cuda": runs[key]})
+        want_g, got_g = runs["cpu"][1], runs[key][1]
+        norm = {net: (sum(float((got_g[n] - g).square().sum()) for n, g in want_g.items() if n.startswith(net)) /
+                      sum(float(g.square().sum()) for n, g in want_g.items() if n.startswith(net))) ** 0.5
+                for net in ("G", "D")}
+        return part_err, norm, stat_err, f"{grad_err:.3g} at {worst}"
+
+    card, control = gan_errors("cuda"), gan_errors("tf32")
+    show = lambda r: f"metrics {r[0]:.3g} relative, gradients' error norm over their norm G {r[1]['G']:.3g} " \
+                     f"D {r[1]['D']:.3g} (largest per leaf {r[3]}), u and sigma {r[2]:.3g}"  # noqa: E731
+    print(f"RealESRGAN_x2plus GAN step, HR 64x64 batch 2, perceptual term on: metrics "
+          f"{ {k: round(v, 6) for k, v in runs['cpu'][0].items()} } ({len(runs['cpu'][1])} leaves, "
+          f"{len(runs['cpu'][2])} spectral-norm buffers); against the CPU: card {show(card)}; TF32 control "
+          f"{show(control)}; gates {GAN_GATES}")
+    check(all(np.isfinite(v) for v in runs["cuda"][0].values()) and runs["cuda"][0]["percep"] > 0,
+          f"GAN step metrics {runs['cuda'][0]}")
+    check(card[0] <= GAN_GATES[0], f"GAN step: metrics card vs CPU {card[0]} relative")
+    check(max(card[1].values()) <= GAN_GATES[1], f"GAN step: gradients card vs CPU {card[1]} (error norm over norm)")
+    check(card[2] <= GAN_GATES[2], f"GAN step: spectral-norm u and sigma card vs CPU {card[2]}")
+    check(max(control[1].values()) > GAN_GATES[1], f"GAN step: the TF32 control's gradients {control[1]} pass the gate")
+
+
+def detr_sr_main_path_phase(torch):
+    """The timings run before each profile window."""
+    phase(f"28 training main path: rtdetr-l {TRAIN_SIZE}x{TRAIN_SIZE} batch {TRAIN_BATCH}, CDN {DETR_GROUPS} groups, "
+          f"float32, AdamW lr 1e-4, greedy matcher; RealESRGAN_x2plus HR {SR_HR} batch {SR_BATCH} (Adam, clip 5, EMA "
+          f"0.999), then its GAN step with the perceptual term")
+    import copy
+
+    import numpy as np
+
+    from facedet_tpu_torch.engine.detector import _exact_float32
+    from facedet_tpu_torch.models.rtdetr import RTDETR_VARIANTS, create_rtdetr
+    from facedet_tpu_torch.models.yolov11 import YoloConfig, YoloV11
+    from facedet_tpu_torch.train.perceptual import DEFAULT_LAYERS, make_yolo_feature_loss
+    from facedet_tpu_torch.train.rtdetr_train import (
+        WarmupConstant,
+        greedy_match,
+        make_rtdetr_train_step,
+        make_staged_rtdetr_loop,
+    )
+    from facedet_tpu_torch.train.sr_gan import create_discriminator, make_sr_gan_staged_loop
+    from facedet_tpu_torch.train.sr_train import make_sr_staged_loop
+    from facedet_tpu_torch.train.yolo_train import ClippedAdamW, WarmupCosineDecay
+
+    batch = [x.cuda() for x in _detr_batch(torch, TRAIN_SIZE, TRAIN_BATCH, seed=750)]
+    model = create_rtdetr(RTDETR_VARIANTS["rtdetr-l"], seed=7).cuda()
+    flops = 3 * shape_flops(torch, model, lambda: model(batch[0]))
+    tx = ClippedAdamW(model.parameters(), WarmupConstant(1e-4, 100), weight_decay=1e-4, max_norm=0.1)
+    step = make_rtdetr_train_step(model, tx, dn_groups=DETR_GROUPS, seed=751)
+    losses = []
+    run = lambda: losses.append(step(*batch)[0])  # noqa: E731
+    images_u8 = torch.stack([(batch[0] * 255).round().to(torch.uint8)] * 2)
+    staged = [images_u8] + [torch.stack([x] * 2) for x in batch[1:]]
+    with _exact_float32(True):
+        torch.cuda.reset_peak_memory_stats()
+        times = _time_steps(torch, run, n=DETR_STEPS, warmup=3)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        make_staged_rtdetr_loop(model, tx, steps_per_dispatch=2, seed=752)(*staged)  # warm-up of the flip path
+        loop = make_staged_rtdetr_loop(model, tx, steps_per_dispatch=DETR_STAGED, seed=753)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean = float(loop(*staged, start=1))
+        staged_ms = (time.perf_counter() - t0) * 1e3 / DETR_STAGED
+        ms = statistics.median(times)
+        launches, device_ms = _step_profile(torch, run, ms, "rtdetr-l CDN")
+        cost = torch.rand(TRAIN_BATCH, 300, TRAIN_FACES, device="cuda")
+        match_ms = statistics.median(_time_steps(torch, lambda: greedy_match(cost), n=10))
+        match_launches = _kernel_launches(torch, lambda: greedy_match(cost))
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)) and np.isfinite(mean), f"rtdetr-l training losses {losses}, staged {mean}")
+    rate = flops / ms / 1e9
+    print(f"make_rtdetr_train_step, rtdetr-l {TRAIN_SIZE}x{TRAIN_SIZE} batch {TRAIN_BATCH}, {TRAIN_FACES} faces per image, "
+          f"CDN {DETR_GROUPS} groups ({2 * DETR_GROUPS * TRAIN_FACES} denoising queries), float32 (TF32 off): median "
+          f"{ms:.3f} ms/step over {len(times)} (min {min(times):.3f}, max {max(times):.3f}), {TRAIN_BATCH / ms * 1e3:.2f} "
+          f"images/s, peak memory {peak:.3f} GB, {flops / 1e12:.4f} TFLOP per step (forward convs, linears and attention "
+          f"x3, the matching queries only) = {rate:.2f} TFLOP/s ({100 * rate / (F32_FLOPS_PER_S / 1e12):.1f}% of the "
+          f"67 TFLOP/s float32 peak); loss {losses[0]:.4f} -> {losses[-1]:.4f} over {len(losses)} steps")
+    print(f"make_staged_rtdetr_loop, flip=True, {DETR_STAGED} steps per dispatch: {staged_ms:.3f} ms/step, mean loss "
+          f"{mean:.4f}")
+    print(f"greedy_match alone on [{TRAIN_BATCH}, 300, {TRAIN_FACES}] costs: {match_ms:.3f} ms, {match_launches} kernel "
+          f"launches ({TRAIN_FACES} iterations; {2 * 6} calls per step: 6 decoder layers)")
+
+    del model, tx, step, loop, staged, batch
+    lr_u8, hr_u8 = _sr_patches(torch, 2 * SR_BATCH, SR_HR, seed=753)
+    lr_u8 = lr_u8.reshape(2, SR_BATCH, *lr_u8.shape[1:]).cuda()
+    hr_u8 = hr_u8.reshape(2, SR_BATCH, *hr_u8.shape[1:]).cuda()
+    g = _golden_x2(torch, "cuda")
+    ema = copy.deepcopy(g)
+    tx = ClippedAdamW(g.parameters(), WarmupCosineDecay(2e-4, 200, 4000, 1e-5), weight_decay=0.0, max_norm=5.0)
+    sr_flops = 3 * SR_BATCH * rrdb_conv_flops(g.cfg, SR_HR // 2, SR_HR // 2)
+    d = create_discriminator(64, seed=754).cuda()
+    percep = make_yolo_feature_loss(device="cuda")
+    fake = torch.rand(SR_BATCH, SR_HR, SR_HR, 3, device="cuda")
+    d_flops = shape_flops(torch, d, lambda: d(fake))
+    backbone = YoloV11(YoloConfig(scale="n")).backbone.cuda()
+    p_flops = shape_flops(torch, backbone, lambda: backbone.features(fake.permute(0, 3, 1, 2), DEFAULT_LAYERS))
+    # G x3; D: forward and input gradient in the G step, two passes x3 in the D step; the
+    # perceptual backbone: two forwards and the input gradient
+    gan_flops = sr_flops + 8 * d_flops + 3 * p_flops
+    gan_tx = [ClippedAdamW(m.parameters(), lambda c: 1e-4, weight_decay=0.0, max_norm=5.0) for m in (g, d)]
+    gan = make_sr_gan_staged_loop(g, d, *gan_tx, steps_per_dispatch=1, flip=True, percep_fn=percep, seed=755)
+    sr = make_sr_staged_loop(g, tx, steps_per_dispatch=1, flip=True, seed=756)
+    with _exact_float32(True):
+        torch.cuda.reset_peak_memory_stats()
+        counter = iter(range(10**6))
+        sr_times = _time_steps(torch, lambda: sr(ema, lr_u8, hr_u8, start=next(counter)), n=SR_STEPS, warmup=2)
+        sr_peak = torch.cuda.max_memory_allocated() / 1e9
+        sr_ms = statistics.median(sr_times)
+        sr_launches, sr_device = _step_profile(torch, lambda: sr(ema, lr_u8, hr_u8, start=next(counter)), sr_ms,
+                                               "RealESRGAN_x2plus staged")
+        torch.cuda.reset_peak_memory_stats()
+        metrics = []
+        gan_times = _time_steps(torch, lambda: metrics.append(gan(ema, lr_u8, hr_u8, start=next(counter))),
+                                n=SR_STEPS, warmup=2)
+        gan_peak = torch.cuda.max_memory_allocated() / 1e9
+        gan_ms = statistics.median(gan_times)
+        gan_launches, gan_device = _step_profile(torch, lambda: gan(ema, lr_u8, hr_u8, start=next(counter)), gan_ms,
+                                                 "GAN")
+    last = {k: float(v) for k, v in metrics[-1].items()}
+    check(all(np.isfinite(v) for v in last.values()), f"GAN metrics {last}")
+    print(f"make_sr_staged_loop, RealESRGAN_x2plus (golden), HR {SR_HR} batch {SR_BATCH}, flip, EMA 0.999, float32 "
+          f"(TF32 off): median {sr_ms:.3f} ms/step over {len(sr_times)} (min {min(sr_times):.3f}, max "
+          f"{max(sr_times):.3f}), {SR_BATCH / sr_ms * 1e3:.2f} patches/s, peak memory {sr_peak:.3f} GB, "
+          f"{sr_flops / 1e12:.4f} TFLOP per step (convs x3) = {sr_flops / sr_ms / 1e9:.2f} TFLOP/s")
+    print(f"profiles: the SR step {sr_launches:.0f} launches, device busy {sr_device:.3f} ms "
+          f"({100 * sr_device / sr_ms:.1f}%); the GAN step {gan_launches:.0f} launches, device busy {gan_device:.3f} ms "
+          f"({100 * gan_device / gan_ms:.1f}%)")
+    print(f"make_sr_gan_staged_loop, the same G with PatchDiscriminator(64) and the perceptual term: median "
+          f"{gan_ms:.3f} ms/step over {len(gan_times)} (min {min(gan_times):.3f}, max {max(gan_times):.3f}), "
+          f"{SR_BATCH / gan_ms * 1e3:.2f} patches/s, peak memory {gan_peak:.3f} GB, {gan_flops / 1e12:.4f} TFLOP per "
+          f"step (G x3, D x8, the perceptual backbone x3) = {gan_flops / gan_ms / 1e9:.2f} TFLOP/s; last metrics {last}")
+
+
+def detr_sr_learning_phase(torch, root):
+    phase(f"29 learning proof: selftrain_demo --model rtdetr --steps {DETR_DEMO_STEPS} --lr 8e-4 (rtdetr-tiny, 96x96, CDN), "
+          f"RtDetrTrainer for 2 epochs and its last.npz, a narrow SR run")
+    import copy
+
+    import numpy as np
+
+    from facedet_tpu_torch.engine.rtdetr_wrapper import RtDetrDetectionModel
+    from facedet_tpu_torch.models.rrdbnet import RRDBConfig, create_rrdbnet
+    from facedet_tpu_torch.models.rtdetr import RTDETR_VARIANTS
+    from facedet_tpu_torch.tools import selftrain_demo
+    from facedet_tpu_torch.train.rtdetr_train import RtDetrTrainer, xyxy_to_cxcywh
+    from facedet_tpu_torch.train.sr_train import make_sr_staged_loop
+    from facedet_tpu_torch.train.yolo_train import ClippedAdamW
+
+    t0 = time.perf_counter()
+    out = selftrain_demo.main(["--model", "rtdetr", "--steps", str(DETR_DEMO_STEPS), "--lr", "8e-4"])
+    secs = time.perf_counter() - t0
+    before, after, losses = out["before"]["map50"], out["after"]["map50"], out["losses"]
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    print(f"selftrain_demo rtdetr-tiny, {DETR_DEMO_STEPS} steps of batch 16 at 96x96 from a seeded init, lr 8e-4, CDN "
+          f"{DETR_GROUPS} groups: mAP50 {before:.4f} -> {after:.4f} (mAP {out['after']['map']:.4f}); mean loss of the "
+          f"first 20 steps {first:.4f}, of the last 20 {last:.4f} ({100 * last / first:.1f}%); {secs:.1f} s with both "
+          f"validations")
+    check(after > before and last < 0.7 * first,
+          f"the RT-DETR demo did not learn: mAP50 {before} -> {after}, loss {first} -> {last}")
+
+    images, boxes, masks = (torch.from_numpy(a) for a in selftrain_demo.make_blob_dataset(16, 96, seed=760))
+    cxcywh = xyxy_to_cxcywh(boxes, 96.0)
+    batches = [tuple(a[i:i + 8] for a in (images, cxcywh, masks)) for i in (0, 8)]
+    run_dir = os.path.join(root, "rtdetr_run")
+    trainer = RtDetrTrainer(RTDETR_VARIANTS["rtdetr-tiny"], lr=4e-4, output_dir=run_dir, save_period=1, image_size=96,
+                            warmup_steps=2)
+    check(trainer.device.type == "cuda", f"RtDetrTrainer chose {trainer.device}")
+    result = trainer.fit(lambda epoch: batches, num_epochs=2, verbose=False)
+    check(result["epochs"] == 2 and sorted(os.listdir(run_dir)) ==
+          ["best.npz", "epoch1.npz", "epoch2.npz", "last.npz", "results.csv", "results.json"],
+          f"RtDetrTrainer.fit wrote {sorted(os.listdir(run_dir))}")
+    tiles = torch.from_numpy(selftrain_demo.make_blob_dataset(2, 96, seed=761)[0]).cuda()
+    kw = dict(variant="rtdetr-tiny", dtype="float32", image_size=96, confidence_threshold=0.05)
+    from_file = RtDetrDetectionModel(model_path=os.path.join(run_dir, "last.npz"), device="cuda", **kw)
+    want = trainer.as_detection_model(0.05).forward_tiles(tiles, 0.05)
+    got = from_file.forward_tiles(tiles, 0.05)
+    box_err = float((got.boxes - want.boxes).abs().max())
+    score_err = float((got.scores - want.scores).abs().max())
+    check(int(want.valid.sum()) > 0, "the trained RT-DETR found nothing at confidence 0.05")
+    check(torch.equal(got.valid, want.valid) and box_err <= BOX_ATOL and score_err <= SCORE_ATOL,
+          f"RtDetrTrainer last.npz against memory: boxes {box_err}, scores {score_err}")
+    print(f"RtDetrTrainer last.npz against the trained model in memory on 2 tiles: {int(want.valid.sum())} detections "
+          f"at conf 0.05, boxes max err {box_err:.3g} px, scores {score_err:.3g} (file vs memory)")
+    print(f"RtDetrTrainer: 2 epochs of 2 batches of 8 at 96x96, losses {[round(h['train_loss'], 4) for h in trainer.history]}")
+
+    net = create_rrdbnet(RRDBConfig(scale=2, num_block=1, num_feat=16, num_grow_ch=8),
+                         torch.Generator().manual_seed(770)).cuda()
+    hr_u8 = torch.from_numpy(np.random.default_rng(771).integers(0, 256, (1, 4, 16, 16, 3), dtype=np.uint8)).cuda()
+    lr_u8 = hr_u8[:, :, ::2, ::2].contiguous()
+    run = make_sr_staged_loop(net, ClippedAdamW(net.parameters(), lambda c: 2e-3, weight_decay=0.0, max_norm=5.0),
+                              steps_per_dispatch=1, flip=False)
+    ema = copy.deepcopy(net)
+    sr_losses = [float(run(ema, lr_u8, hr_u8, start=i)) for i in range(40)]
+    print(f"narrow SR net (1 block, 16 features), 40 steps on one batch from a seeded init: loss {sr_losses[0]:.4f} -> "
+          f"{sr_losses[-1]:.4f}")
+    check(sr_losses[-1] < 0.7 * sr_losses[0], f"the narrow SR run did not learn: {sr_losses[0]} -> {sr_losses[-1]}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2197,6 +2597,9 @@ def main() -> int:
         train_fidelity_phase(torch)
         train_main_path_phase(torch)
         learning_phase(torch, eval_root)
+        detr_sr_fidelity_phase(torch)
+        detr_sr_main_path_phase(torch)
+        detr_sr_learning_phase(torch, eval_root)
         for family, c in family_counts.items():
             check(c["gather_chw"] > 0, f"the {family} main path did not launch the CHW gather")
             for name, n in c.items():

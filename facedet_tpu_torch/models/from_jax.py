@@ -30,12 +30,19 @@ projections are packed into ``attn.in_proj_weight [3D, D]`` and
 ``scale_embed{i}`` parameters keep their names.
 
 ``to_jax_variables`` goes the other way for the trainers' ``.npz`` export:
-a YOLO or SCRFD state dict becomes the nested flax tree (conv ``OIHW`` ->
-``HWIO``, ``Linear`` ``[out, in]`` -> ``[in, out]``, ``running_*`` ->
-``mean``/``var``, ``weight`` -> ``kernel``/``scale``), which
-engine/detector.save_params_npz writes flat. The attention leaves whose
-head axes were folded (RT-DETR, TOPIQ) and bare parameters are not
-inverted: it raises on them.
+a state dict becomes the nested flax tree (conv ``OIHW`` -> ``HWIO``,
+``Linear`` ``[out, in]`` -> ``[in, out]``, ``running_*`` -> ``mean``/``var``,
+``weight`` -> ``kernel``/``scale``, bare parameters by name), which
+engine/detector.save_params_npz writes flat. The attention projections get
+their head axes back from a head map (``attention_heads(model)``: RT-DETR's
+``MultiHeadAttention``, TOPIQ's packed ``in_proj_*`` too); without it they
+raise.
+
+``load_discriminator_variables`` carries the flax ``PatchDiscriminator``
+(facedet_tpu/train/sr_gan.py): its ``params`` as above and its spectral-norm
+statistics, kept by flax under ``batch_stats/SpectralNorm_<i>`` with keys
+that hold slashes (``c0/kernel/u`` [1, out], ``c0/kernel/sigma`` ()), into
+the ``u`` / ``sigma`` buffers of each ``SpectralNormConv2d``.
 """
 from __future__ import annotations
 
@@ -49,7 +56,9 @@ __all__ = [
     "load_params_npz",
     "from_jax_variables",
     "to_jax_variables",
+    "attention_heads",
     "load_jax_variables",
+    "load_discriminator_variables",
     "load_rrdb_npz",
     "load_topiq_variables",
 ]
@@ -125,24 +134,65 @@ def from_jax_variables(tree: dict) -> dict[str, torch.Tensor]:
     return state
 
 
-def to_jax_variables(state: dict[str, torch.Tensor]) -> dict:
-    """Torch state dict -> nested flax variables {params, batch_stats} of
-    numpy float32 arrays, the inverse of ``from_jax_variables`` for convs,
-    dense layers and norms. BatchNorm step counters are dropped (flax keeps
-    none); a leaf it cannot invert raises ``NotImplementedError``."""
-    tree: dict = {}
+def attention_heads(module: nn.Module) -> dict[str, int]:
+    """{module path: head count} of the attention layers in ``module`` (the
+    head map ``to_jax_variables`` needs to restore flax's head axes)."""
+    from facedet_tpu_torch.models.rtdetr import MultiHeadAttention
+    from facedet_tpu_torch.models.topiq import MultiheadAttention
+
+    kinds = (MultiHeadAttention, MultiheadAttention)
+    return {name: m.num_heads for name, m in module.named_modules() if isinstance(m, kinds)}
+
+
+def _unpack_in_proj(state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The inverse of ``_pack_in_proj``: ``<p>.in_proj_{weight,bias}`` ->
+    ``<p>.{query,key,value}.*`` and ``<p>.out_proj.*`` -> ``<p>.out.*``."""
+    out = {}
     for key, value in state.items():
+        m = re.fullmatch(r"(.*)\.(in_proj_|out_proj\.)(weight|bias)", key)
+        if m is None:
+            out[key] = value
+        elif m[2] == "out_proj.":
+            out[f"{m[1]}.out.{m[3]}"] = value
+        else:
+            for name, part in zip(("query", "key", "value"), value.chunk(3)):
+                out[f"{m[1]}.{name}.{m[3]}"] = part
+    return out
+
+
+def _attention_leaf(kind: str, leaf: str, arr: np.ndarray, heads: int) -> tuple[str, np.ndarray]:
+    """A folded ``Linear`` leaf -> flax's: ``query|key|value`` kernels
+    ``[D, H, dh]`` and biases ``[H, dh]``, the ``out`` kernel ``[H, dh, D]``."""
+    if leaf == "weight":
+        arr = arr.T
+        return "kernel", arr.reshape(heads, -1, arr.shape[1]) if kind == "out" else arr.reshape(arr.shape[0], heads, -1)
+    return "bias", arr if kind == "out" else arr.reshape(heads, -1)
+
+
+def to_jax_variables(state: dict[str, torch.Tensor], heads: dict[str, int] | None = None) -> dict:
+    """Torch state dict -> nested flax variables {params, batch_stats} of
+    numpy float32 arrays, the inverse of ``from_jax_variables``. ``heads``
+    ({attention module path: head count}, ``attention_heads(model)``) names
+    the attention layers. BatchNorm step counters are dropped (flax keeps
+    none); a leaf it cannot invert raises ``NotImplementedError``."""
+    heads = heads or {}
+    tree: dict = {}
+    for key, value in _unpack_in_proj(state).items():
         *mods, leaf = key.split(".")
         if leaf == "num_batches_tracked":
             continue
-        if not mods or leaf.startswith(("in_proj_", "out_proj")) or (
-            len(mods) >= 2 and mods[-2] == "attn" and mods[-1] in ("query", "key", "value", "out")
-        ):
-            raise NotImplementedError(
-                f"{key}: attention and bare leaves are not inverted yet (RT-DETR and TOPIQ export)"
-            )
         arr = value.detach().to("cpu", torch.float32).numpy()
-        if leaf == "running_mean":
+        parent = ".".join(mods[:-1])
+        if not mods:
+            if not _BARE_PARAMS.fullmatch(leaf):
+                raise NotImplementedError(f"{key}: no flax leaf for a bare parameter of this name")
+            collection, name = "params", leaf
+        elif mods[-1] in ("query", "key", "value", "out") and parent in heads:
+            collection = "params"
+            name, arr = _attention_leaf(mods[-1], leaf, arr, heads[parent])
+        elif mods[-1] in ("query", "key", "value", "out") and parent.endswith("attn"):
+            raise NotImplementedError(f"{key}: an attention projection needs its head count (heads=)")
+        elif leaf == "running_mean":
             collection, name = "batch_stats", "mean"
         elif leaf == "running_var":
             collection, name = "batch_stats", "var"
@@ -212,3 +262,16 @@ def load_topiq_variables(module: nn.Module, tree: dict) -> None:
     port's ``CFANet`` (models/topiq.py); every leaf is used and every
     parameter and buffer is set, or it raises."""
     _load_strict(module, _pack_in_proj(from_jax_variables(tree)))
+
+
+def load_discriminator_variables(module: nn.Module, tree: dict) -> None:
+    """Load a flax ``PatchDiscriminator``'s variables into the port's
+    (train/sr_gan.py): ``params`` by name, and each
+    ``batch_stats/SpectralNorm_<i>/<conv>/kernel/{u,sigma}`` into
+    ``<conv>.u`` / ``<conv>.sigma``; raises on a missing or extra leaf."""
+    state = from_jax_variables({"params": tree["params"]})
+    for stats in tree.get("batch_stats", {}).values():
+        for key, arr in stats.items():
+            conv, _kernel, leaf = key.split("/")
+            state[f"{conv}.{leaf}"] = torch.from_numpy(np.array(arr, np.float32))
+    _load_strict(module, state)

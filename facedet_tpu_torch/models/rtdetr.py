@@ -12,15 +12,18 @@ Counterpart of facedet_tpu/models/rtdetr.py:
 ``RtDetr.forward`` takes NHWC images in [0, 1]; the convs run NCHW
 (``forward_nchw``). Submodules carry the flax names (the auto-named
 ``Conv_0``/``BatchNorm_0`` of ``ConvBnRelu`` included), so flax checkpoints
-load by name through models/from_jax.py. The module owns ``dn_embed`` so that
-checkpoints load; the contrastive-denoising branch itself (``dn_labels``) is
-training only and not yet ported.
+load by name through models/from_jax.py. Training passes contrastive-
+denoising (CDN) queries (``dn_labels``, ``dn_ref``, ``dn_groups``): they go
+through the decoder before the matching queries behind
+``dn_attention_mask`` and come back as ``dn_logits`` / ``dn_boxes``.
 
 Parity notes: BatchNorm eps 1e-5 and LayerNorm eps 1e-6 (flax's defaults),
 flax's train-mode BatchNorm statistics (momentum 0.99, ``FlaxBatchNorm2d``);
 GELU is the tanh approximation; convs and linears run in the config's dtype,
 the norms, the softmax of the sampling weights, the accumulation of samples
-and the box refinement in float32; queries and keys carry the positional
+and the box refinement in float32; the refined reference is detached after
+every decoder layer but the last, before the layer's boxes are read, so
+only the last layer's boxes carry a gradient (as the flax model does); queries and keys carry the positional
 term and values do not; ``jax.image.resize(..., "nearest")`` is torch's
 ``nearest-exact``; sampling coordinates ``loc*W - 0.5`` with zeros outside
 are ``grid_sample(align_corners=False, padding_mode="zeros")``, here on each
@@ -50,6 +53,7 @@ __all__ = [
     "MsDeformAttn",
     "DecoderLayer",
     "inverse_sigmoid",
+    "dn_attention_mask",
     "RtDetr",
     "create_rtdetr",
     "decode_rtdetr",
@@ -148,7 +152,10 @@ class Backbone(nn.Module):
                 y = getattr(self, p + "a")(x)
                 y = getattr(self, p + "bn")(_in(getattr(self, p + "b"), y).float())
                 if project:
-                    x = getattr(self, p + "pbn")(_in(getattr(self, p + "p"), x).float())
+                    # contiguous: torch's CPU backward of a 1x1 stride-2 conv on a
+                    # channels-last input (NHWC images permuted) corrupts the heap,
+                    # and on the card cuDNN transposes its layout in training
+                    x = getattr(self, p + "pbn")(_in(getattr(self, p + "p"), x.contiguous()).float())
                 x = torch.relu(x + y)
             if stage >= 1:
                 outs.append(x)
@@ -334,15 +341,28 @@ def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return torch.log(x / (1 - x))
 
 
+def dn_attention_mask(n_dn: int, num_groups: int, num_queries: int, device=None) -> torch.Tensor:
+    """Decoder self-attention mask for CDN, [N+K, N+K] (True = may attend):
+    matching queries never see denoising ones, denoising group i never sees
+    group j != i, and every query sees the matching block."""
+    total = n_dn + num_queries
+    group = torch.arange(n_dn, device=device) // max(n_dn // num_groups, 1)
+    mask = torch.zeros((total, total), dtype=torch.bool, device=device)
+    mask[:, n_dn:] = True
+    mask[:n_dn, :n_dn] = group[:, None] == group[None, :]
+    return mask
+
+
 class RtDetr(nn.Module):
     """images [B,H,W,3] in [0,1] -> dict with per-layer logits / boxes, the
-    encoder outputs and ``top_idx``, the encoder tokens selected as queries."""
+    encoder outputs and ``top_idx``, the encoder tokens selected as queries;
+    with CDN queries also per-layer ``dn_logits`` / ``dn_boxes``."""
 
     def __init__(self, cfg: RtDetrConfig):
         super().__init__()
         self.cfg = cfg
         d = cfg.hidden_dim
-        # owned so that checkpoints load; read by the denoising branch only
+        # the denoising queries' label embedding (training only)
         self.dn_embed = nn.Parameter(torch.zeros(cfg.num_classes + 1, d))
         self.backbone = Backbone(cfg)
         self.encoder = Ccff(cfg)
@@ -369,9 +389,10 @@ class RtDetr(nn.Module):
 
     def forward_nchw(self, x, dn_labels=None, dn_ref=None, dn_groups: int = 0, top_idx=None):
         """x [B,3,H,W]. ``top_idx`` [B,K] overrides the query selection (to
-        compare two runs whose encoder scores differ in the last digits)."""
-        if dn_labels is not None:
-            raise NotImplementedError("the contrastive-denoising (CDN) branch is training only and not yet ported")
+        compare two runs whose encoder scores differ in the last digits).
+        ``dn_labels`` [B,N] (class ids, ``num_classes`` = background) and
+        ``dn_ref`` [B,N,4] cxcywh add N denoising queries in ``dn_groups``
+        groups."""
         cfg, dt = self.cfg, self.cfg.compute_dtype
         feats = self.encoder(self.backbone(x.to(dt)))
         b = x.shape[0]
@@ -401,18 +422,34 @@ class RtDetr(nn.Module):
         ref = take(enc_boxes)  # [B,K,4]
         query = take(enc_tokens).to(dt)
 
+        n_dn, attn_mask = 0, None
+        if dn_labels is not None:
+            n_dn = dn_labels.shape[1]
+            query = torch.cat([self.dn_embed[dn_labels.long()].to(dt), query], dim=1)
+            ref = torch.cat([dn_ref.float(), ref], dim=1)
+            attn_mask = dn_attention_mask(n_dn, max(dn_groups, 1), k, device=x.device)[None, None]
+
         outputs = {"enc_logits": enc_logits, "enc_boxes": enc_boxes, "top_idx": top_idx}
-        layer_logits, layer_boxes = [], []
+        layer_logits, layer_boxes, dn_logits, dn_boxes = [], [], [], []
+        last = cfg.num_decoder_layers - 1
         for li in range(cfg.num_decoder_layers):
             query_pos = _in(getattr(self, f"qpos{li}"), inverse_sigmoid(ref))
-            query = getattr(self, f"layer{li}")(query, ref, feats, query_pos)
-            logits = _in(getattr(self, f"cls{li}"), query)
+            query = getattr(self, f"layer{li}")(query, ref, feats, query_pos, attn_mask=attn_mask)
+            logits = _in(getattr(self, f"cls{li}"), query).float()
             delta = _in(getattr(self, f"box{li}"), query)
             ref = torch.sigmoid(delta.float() + inverse_sigmoid(ref))
-            layer_logits.append(logits.float())
-            layer_boxes.append(ref)
+            if li < last:
+                ref = ref.detach()
+            layer_logits.append(logits[:, n_dn:])
+            layer_boxes.append(ref[:, n_dn:])
+            if n_dn:
+                dn_logits.append(logits[:, :n_dn])
+                dn_boxes.append(ref[:, :n_dn])
         outputs["logits"] = layer_logits
         outputs["boxes"] = layer_boxes
+        if n_dn:
+            outputs["dn_logits"] = dn_logits
+            outputs["dn_boxes"] = dn_boxes
         return outputs
 
 

@@ -76,13 +76,20 @@ class Backbone(nn.Module):
         self.sppf = SPPF(c(1024), c(1024), 5)
         self.c2psa = C2PSA(c(1024), c(1024), d)
 
+    STAGES = ("stem", "down1", "c3k2_0", "down2", "c3k2_1", "down3", "c3k2_2", "down4", "c3k2_3", "sppf", "c2psa")
+
     def forward(self, x):
-        x = self.c3k2_0(self.down1(self.stem(x)))
-        p3 = self.c3k2_1(self.down2(x))
-        p4 = self.c3k2_2(self.down3(p3))
-        x = self.c3k2_3(self.down4(p4))
-        p5 = self.c2psa(self.sppf(x))
-        return p3, p4, p5
+        return tuple(self.features(x, ("c3k2_1", "c3k2_2", "c2psa")))  # p3, p4, p5
+
+    def features(self, x, names) -> list:
+        """The outputs of the named stages, in the order of ``names``
+        (flax's ``capture_intermediates`` by module name); the stages after
+        the last one named do not run."""
+        out = {}
+        for stage in self.STAGES[: max(self.STAGES.index(n) for n in names) + 1]:
+            x = getattr(self, stage)(x)
+            out[stage] = x
+        return [out[n] for n in names]
 
 
 class PanNeck(nn.Module):

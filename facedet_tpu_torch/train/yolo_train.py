@@ -374,23 +374,24 @@ def make_optimizer(params, lr: float = 1e-4, weight_decay: float = 0.0005, warmu
     return ClippedAdamW(params, sched, weight_decay)
 
 
-def _conv_params(model: nn.Module):
+def _kernel_params(model: nn.Module):
     for name, m in model.named_modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
             for pname, p in m.named_parameters(recurse=False):
                 yield f"{name}.{pname}" if name else pname, p
 
 
-def train_forward(model: nn.Module, images: torch.Tensor):
-    """The model in train mode on NHWC images. With a bfloat16 config the
-    conv weights are cast for this call only, so the parameters (and the
-    gradients the optimizer sees) stay float32."""
+def train_forward(model: nn.Module, images: torch.Tensor, **kwargs):
+    """The model in train mode on NHWC images (``kwargs`` go to its forward).
+    With a bfloat16 config the conv and linear weights are cast for this call
+    only, so the parameters (and the gradients the optimizer sees) stay
+    float32."""
     model.train()
     dtype = model.cfg.compute_dtype
     if dtype == torch.float32:
-        return model(images)
-    casts = {name: p.to(dtype) for name, p in _conv_params(model)}
-    return torch.func.functional_call(model, casts, (images,))
+        return model(images, **kwargs)
+    casts = {name: p.to(dtype) for name, p in _kernel_params(model)}
+    return torch.func.functional_call(model, casts, (images,), kwargs)
 
 
 def _set_bn_dtype(model: nn.Module) -> None:

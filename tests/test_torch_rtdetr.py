@@ -245,8 +245,10 @@ def test_random_init_is_seeded_and_unported_parts_raise(tmp_path):
         assert torch.equal(va, vb), ka
     det = a.forward_tiles(torch.rand(1, 64, 64, 3, generator=torch.Generator().manual_seed(1)))
     assert det.boxes.shape == (1, 60, 4) and bool(torch.isfinite(det.boxes).all())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        m(torch.zeros(1, 64, 64, 3), dn_labels=torch.zeros(1, 2, dtype=torch.long))
+    # the denoising branch is ported (train/rtdetr_train.py holds it against JAX): two groups of one query pair
+    outs = m(torch.zeros(1, 64, 64, 3), dn_labels=torch.tensor([[0, 1, 0, 1]]), dn_ref=torch.full((1, 4, 4), 0.5),
+             dn_groups=2)
+    assert outs["dn_logits"][-1].shape == (1, 4, 1) and outs["logits"][-1].shape == (1, 60, 1)
     fd = FaceDetector(variant="rtdetr-tiny", conf=0.1, image_size=64, device="cpu")
     for call in (lambda: fd.detect_video("a.avi", "b.avi"), lambda: fd.detect_webcam()):
         with pytest.raises(NotImplementedError, match="not yet ported"):

@@ -42,6 +42,7 @@ from facedet_tpu_torch.models.yolov11 import YoloConfig
 from facedet_tpu_torch.tools import misc, selftrain_demo, training_rollup
 from facedet_tpu_torch.train import checkpoint as ckpt
 from facedet_tpu_torch.train import scrfd_train, yolo_train
+from facedet_tpu_torch.train.rtdetr_train import RtDetrTrainer
 from facedet_tpu_torch.train.yolo_trainer import YoloDataset, YoloTrainer
 from facedet_tpu_torch.utils.synth import synthetic_faces_with_boxes
 
@@ -179,16 +180,37 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
         YoloTrainer(YoloConfig(scale="n"), image_size=32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         selftrain_demo.main(["--steps", "1"])
-    with pytest.raises(NotImplementedError, match="12c"):
-        selftrain_demo.main(["--model", "rtdetr", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        selftrain_demo.main(["--model", "rtdetr", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RtDetrTrainer(RTDETR_VARIANTS["rtdetr-tiny"], image_size=32)
 
 
 # --- the .npz interchange -------------------------------------------------------
 
-@pytest.mark.parametrize("path", [YOLO_CKPT, SCRFD_CKPT], ids=["yolo11n", "scrfd_2.5g"])
+def _topiq_export():
+    """TOPIQ's flax variables (tiny config), and the port's state dict and
+    head map after loading them: the packed ``in_proj`` layout."""
+    from test_torch_topiq import TINY, flax_variables
+
+    from facedet_tpu.models import topiq as jtopiq
+    from facedet_tpu_torch.models import topiq as ttopiq
+
+    tree = flax_variables(jtopiq.TopiqConfig(**TINY))
+    model = ttopiq.CFANet(ttopiq.TopiqConfig(**TINY))
+    from_jax.load_topiq_variables(model, tree)
+    assert any(k.endswith("in_proj_weight") for k in model.state_dict())
+    return tree, model.state_dict(), from_jax.attention_heads(model)
+
+
+@pytest.mark.parametrize("path", [YOLO_CKPT, SCRFD_CKPT, "topiq"], ids=["yolo11n", "scrfd_2.5g", "topiq"])
 def test_to_jax_variables_inverts_from_jax(path, tmp_path):
-    tree = from_jax.load_params_npz(path)
-    back = from_jax.to_jax_variables(from_jax.from_jax_variables(tree))
+    if path == "topiq":
+        tree, state, heads = _topiq_export()
+    else:
+        tree = from_jax.load_params_npz(path)
+        state, heads = from_jax.from_jax_variables(tree), None
+    back = from_jax.to_jax_variables(state, heads)
     assert jax.tree.structure(back) == jax.tree.structure(tree)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
         np.testing.assert_array_equal(a, b)
@@ -203,9 +225,28 @@ def test_to_jax_variables_inverts_from_jax(path, tmp_path):
 
 
 def test_to_jax_variables_raises_on_folded_attention():
+    """Without a head map the folded attention projections raise; with the
+    module's head map rtdetr-tiny's flax variables (attention kernels
+    [D, H, dh] / [H, dh, D], biases [H, dh], the bare ``dn_embed``) come back
+    bit for bit."""
+    from test_torch_scrfd import seeded_variables
+
+    from facedet_tpu.models import rtdetr as jax_rtdetr
+
     model = RtDetr(dataclasses.replace(RTDETR_VARIANTS["rtdetr-tiny"]))
-    with pytest.raises(NotImplementedError, match="attention"):
-        from_jax.to_jax_variables(model.state_dict())
+    with pytest.raises(NotImplementedError, match="head count"):
+        from_jax.to_jax_variables({k: v for k, v in model.state_dict().items() if k != "dn_embed"})
+    jm = jax_rtdetr.RtDetr(jax_rtdetr.RTDETR_VARIANTS["rtdetr-tiny"])
+    shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3))))
+    tree = seeded_variables(jax.tree.map(lambda x: np.zeros(x.shape, np.float32), shapes), 3)
+    from_jax.load_jax_variables(model, tree)
+    heads = from_jax.attention_heads(model)
+    assert heads == {"encoder.aifi.self_attn": 4, "layer0.self_attn": 4, "layer1.self_attn": 4}
+    back = from_jax.to_jax_variables(model.state_dict(), heads)
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
+        assert a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
 
 
 # --- checkpoints ----------------------------------------------------------------
