@@ -137,7 +137,33 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    last 20 steps under 70% of its first 20; an RtDetrTrainer run of 2
    epochs whose last.npz gives the in-memory model's detections; a narrow
    SR net whose loss falls under 70% of its first in 40 steps;
-30. report: the wall seconds of every phase, a ``kernels`` JSON line, the nvidia-smi line, and last the
+30. checkpoint conversion: a randomized yolo11n-pose in the ultralytics
+   namespace (tests/torch_yolo_ref.py, torch only) through
+   convert_ultralytics_checkpoint: the scale read back, the nine head maps
+   on the card within 1e-4 of the reference module (float32, TF32 off);
+   the same state dict saved as a .pt and loaded by
+   YoloV11PoseDetectionModel(model_path=...), one get_sliced_prediction;
+   a seeded x2plus renamed to basicsr's names and unshuffle order and
+   converted back bit for bit, its forward equal;
+31. int8 serving, with the launch counts set to 0 first: golden yolo11n
+   quantized by quantize_detector on the card (the count against the JAX
+   package's); the same int8 buffers on the CPU: each int8 layer given the
+   CPU's input (levels and outputs), then get_sliced_prediction in float32
+   card against CPU under PERF.md §2's gates, or under the int8 gate beside
+   two controls (the CPU against itself one ulp up, which breaks §2's gates
+   too; the float32 detector, which the int8 gate must fail); bfloat16
+   single image int8 beside float in turns (ms per image, a profile each,
+   the aten::_int_mm and aten::convolution counts), the int8 GEMMs alone
+   (ms, TOPS, share of the int8 peak), detection agreement with float
+   bfloat16 at IoU 0.5, and the serving stream (batch 64, window 3,
+   dct420s) int8 against bfloat16 in images per second;
+32. video, with the launch counts set to 0 first: an MJPEG AVI of 8 frames
+   of 1024x1536 written by write_video; predict() on it with the golden
+   yolo11n in float32, ingest rgb and dct420, every frame's detections
+   against get_sliced_prediction on the decoded frame, the annotated AVI
+   and the COCO json; FaceDetector.detect_video with the seeded rtdetr-l;
+   frames per second of each; detect_webcam without a camera raises;
+33. report: the wall seconds of every phase, a ``kernels`` JSON line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 It imports nothing of jax or facedet_tpu and needs the checkout: run alone
@@ -2548,6 +2574,340 @@ def detr_sr_learning_phase(torch, root):
     check(sr_losses[-1] < 0.7 * sr_losses[0], f"the narrow SR run did not learn: {sr_losses[0]} -> {sr_losses[-1]}")
 
 
+JAX_INT8_CONVS = 56  # the JAX package's quantize_detector on golden yolo11n (tests/test_torch_quantize.py)
+INT8_TOPS = 1979e12  # H100 SXM dense int8, NVIDIA data sheet
+VIDEO_FRAMES = 8
+
+
+def conversion_phase(torch, root):
+    phase("30 checkpoint conversion: an ultralytics-named yolo11n-pose and a basicsr-named x2plus, float32 (TF32 off)")
+    import numpy as np
+
+    from facedet_tpu_torch import YoloV11PoseDetectionModel, get_sliced_prediction
+    from facedet_tpu_torch.engine.detector import _exact_float32
+    from facedet_tpu_torch.models.convert import _unshuffle_permutation, convert_rrdbnet_checkpoint, convert_ultralytics_checkpoint
+    from facedet_tpu_torch.models.from_jax import _load_strict
+    from facedet_tpu_torch.models.rrdbnet import MODEL_CATALOG, RRDBNet, init_rrdbnet_
+    from facedet_tpu_torch.models.yolov11 import YoloConfig, YoloV11
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_yolo_ref import TorchYolo11Pose, randomize_  # torch only: the ultralytics module tree
+
+    cfg = YoloConfig(scale="n", num_classes=1, with_pose=True, dtype="float32")
+    ref = randomize_(TorchYolo11Pose(cfg), seed=5).eval()
+    sd = ref.state_dict()
+    state, scale = convert_ultralytics_checkpoint(sd, cfg)
+    check(scale == "n", f"the converter read the scale {scale!r} from a yolo11n-pose")
+    model = YoloV11(cfg)
+    _load_strict(model, state)
+    model.set_dtypes().cuda().eval()
+    ref.cuda()
+    x = torch.rand((2, 3, SLICE, SLICE), generator=torch.Generator().manual_seed(9)).cuda()
+    worst = 0.0
+    with torch.inference_mode(), _exact_float32(True):
+        want, got = ref(x), model.forward_nchw(x)
+    for lvl, maps in enumerate(want):
+        for name, w in zip(("box", "cls", "kpt"), maps):
+            g = got[lvl][name].permute(0, 3, 1, 2)
+            err = float(((g - w).abs() / (1e-4 + 1e-4 * w.abs())).max())
+            worst = max(worst, float((g - w).abs().max()))
+            check(err <= 1.0, f"converted yolo11n-pose {name} level {lvl}: {float((g - w).abs().max())} off the reference")
+    print(f"convert_ultralytics_checkpoint: {len(state)} tensors, scale {scale}; the nine head maps at 2x{SLICE}^2 "
+          f"within {worst:.3g} of the torch reference on the card (gate: atol 1e-4 + rtol 1e-4)")
+
+    path = os.path.join(root, "yolo11n-pose.pt")
+    torch.save({"state_dict": {k: v.cpu() for k, v in sd.items()}}, path)
+    det = YoloV11PoseDetectionModel(model_path=path, scale="n", dtype="float32", device="cuda", image_size=SLICE)
+    check(torch.equal(det.model.backbone.c2psa.m0.attn.qkv.conv.weight.cpu(),
+                      sd["model.10.m.0.attn.qkv.conv.weight"].cpu()),
+          "YoloV11PoseDetectionModel(model_path=.pt) did not load the checkpoint's tensors")
+    image = _photo(600)
+    res = get_sliced_prediction(image, det, **SLICED_KW).detections.to_numpy()
+    check(np.isfinite(res["boxes"]).all() and np.isfinite(res["scores"]).all(), "the .pt detector gave non-finite output")
+    print(f"YoloV11PoseDetectionModel(model_path=.pt) -> get_sliced_prediction on 1024x1536: {len(res['boxes'])} "
+          f"detections (random weights)")
+
+    xcfg = MODEL_CATALOG["RealESRGAN_x2plus"]
+    net = RRDBNet(xcfg)
+    init_rrdbnet_(net, torch.Generator().manual_seed(3))
+    own = net.state_dict()
+    basicsr = {}
+    for k, v in own.items():  # the basicsr names and unshuffle order of the same net
+        basicsr[f"body.{k[4:].split('.', 1)[0]}.{k.split('.', 1)[1]}" if k.startswith("body") else k] = v
+    first = torch.empty_like(own["conv_first.weight"])
+    first[:, _unshuffle_permutation(xcfg.num_in_ch, 2)] = own["conv_first.weight"]
+    basicsr["conv_first.weight"] = first
+    back = convert_rrdbnet_checkpoint(basicsr, xcfg)
+    check(set(back) == set(own) and all(torch.equal(back[k], own[k]) for k in own),
+          "convert_rrdbnet_checkpoint did not give the net's own state back from its basicsr names")
+    twin = RRDBNet(xcfg)
+    _load_strict(twin, back)
+    lr = torch.rand((1, 3, 64, 64), generator=torch.Generator().manual_seed(4)).cuda()
+    with torch.inference_mode():
+        check(torch.equal(twin.cuda().eval().forward_nchw(lr), net.cuda().eval().forward_nchw(lr)),
+              "the converted x2plus differs from the original on the card")
+    print(f"convert_rrdbnet_checkpoint: x2plus ({len(own)} tensors, 23 blocks) from basicsr names and "
+          f"F.pixel_unshuffle order back to the port's, bit for bit, and its forward on the card equal")
+
+
+def _match_rate(a, b, iou=0.5):
+    """The share of the rows of ``a`` that one row of ``b`` covers at ``iou``."""
+    if not len(a):
+        return 1.0
+    if not len(b):
+        return 0.0
+    return float((_iou(a, b).max(1) >= iou).mean())
+
+
+def _counted(into, run):
+    """``run()`` with the launch counts from 0; what it launched is added to
+    ``into`` (a dict of kernel names), so runs around it count nowhere."""
+    launches = _reset_launches()
+    out = run()
+    for k in into:
+        into[k] += launches[k]
+    return out
+
+
+def _no_launches():
+    return {"gather_chw": 0, "gather_chw_batched": 0}
+
+
+def int8_phase(torch, models):
+    """Returns the launch counts of the int8 paths."""
+    phase("31 int8 serving: golden yolo11n quantized; float32 card against CPU, bfloat16 single image and stream")
+    import numpy as np
+
+    from facedet_tpu_torch import YoloV11PoseDetectionModel, get_sliced_prediction, predict_stream_batched
+    from facedet_tpu_torch.eval.gates import int8_gate, section2_gate
+    from facedet_tpu_torch.models import quantize as Q
+    from facedet_tpu_torch.models.from_jax import load_jax_variables, to_jax_variables
+    from facedet_tpu_torch.models.layers import Int8ConvBnAct
+
+    kw = dict(model_path=CKPT, scale="n", image_size=SLICE)
+    card = YoloV11PoseDetectionModel(dtype="float32", device="cuda", **kw)
+    t0 = time.perf_counter()
+    n = Q.quantize_detector(card)
+    print(f"quantize_detector on the card (4 natural tiles of {SLICE}^2, float32): {n} quantized convs in "
+          f"{time.perf_counter() - t0:.2f} s; the JAX package's count for the same model: {JAX_INT8_CONVS}")
+    check(n == JAX_INT8_CONVS, f"{n} quantized convs, the JAX package quantizes {JAX_INT8_CONVS}")
+    int8_tree = to_jax_variables(card.model.state_dict())
+    cpu = YoloV11PoseDetectionModel(dtype="float32", device="cpu", **kw)
+    load_jax_variables(cpu.model, int8_tree)  # the same int8 buffers on both sides
+
+    # each int8 layer given the CPU's input: the same levels, the same accumulators
+    image = _photo(610)
+    tiles = torch.from_numpy(np.stack([image[0:SLICE, 0:SLICE], image[384:1024, 896:1536]]).astype(np.float32) / 255)
+    inputs = {}
+    hooks = [m.register_forward_hook(lambda mod, i, o, name=name: inputs.__setitem__(name, (i[0], o)))
+             for name, m in cpu.model.named_modules() if isinstance(m, Int8ConvBnAct)]
+    with torch.inference_mode():
+        cpu.model.forward_nchw(tiles.permute(0, 3, 1, 2))
+    for h in hooks:
+        h.remove()
+    differ, worst = 0, 0.0
+    with torch.inference_mode():
+        for name, (x, want) in inputs.items():
+            layer = card.model.get_submodule(name)
+            got = layer(x.cuda()).cpu()
+            levels = [torch.clamp(torch.round(t.float() / m.ascale), -127, 127).cpu()
+                      for t, m in ((x.cuda(), layer), (x, cpu.model.get_submodule(name)))]
+            differ += int((levels[0] != levels[1]).sum())
+            worst = max(worst, float((got - want).abs().max() / want.abs().max()))
+    check(len(inputs) == n and differ == 0 and worst <= 1e-5,
+          f"int8 layers given the CPU's inputs: {differ} levels differ, outputs {worst} of the largest off")
+    print(f"each of the {n} int8 layers given the CPU's inputs (2 tiles of {SLICE}^2): 0 activation levels differ, "
+          f"outputs within {worst:.3g} of the layer's largest")
+
+    # the whole detector, float32, TF32 off: card against CPU, beside two controls;
+    # launches are counted over the int8 runs on the card alone (``own``)
+    own = {"card": _no_launches(), "single": _no_launches(), "stream": _no_launches()}
+    want = get_sliced_prediction(image, cpu, **SLICED_KW).detections.to_numpy()
+    got = _counted(own["card"], lambda: get_sliced_prediction(image, card, **SLICED_KW)).detections.to_numpy()
+    check(len(want["boxes"]) > 0 and np.isfinite(got["boxes"]).all(), "int8 float32: no or non-finite detections")
+    held, err = section2_gate(got, want)
+    passed, worst_iou, worst_ds = int8_gate(got, want)
+    print(f"int8 get_sliced_prediction float32, card against CPU: {len(got['boxes'])} against {len(want['boxes'])} "
+          f"detections; PERF.md §2's gates {'held' if held else 'FAILED'} {err}; int8 gate (counts, IoU >= 0.85, "
+          f"|dscore| <= 0.05): worst IoU {worst_iou:.4f}, |dscore| {worst_ds:.4g}")
+    canvas = torch.from_numpy(image).float() / 255.0
+    base = get_sliced_prediction(canvas, cpu, **SLICED_KW).detections.to_numpy()
+    nudged = get_sliced_prediction(torch.nextafter(canvas, torch.tensor(2.0)), cpu, **SLICED_KW).detections.to_numpy()
+    nudge_held, nudge_err = section2_gate(nudged, base)
+    print(f"control, the CPU against itself with the image one ulp up: §2's gates {'held' if nudge_held else 'FAILED'} "
+          f"{nudge_err}; int8 gate {int8_gate(nudged, base)[1:]}")
+    float_det = get_sliced_prediction(image, models["cuda"], **SLICED_KW).detections.to_numpy()
+    float_passed, f_iou, f_ds = int8_gate(float_det, want)
+    print(f"control, the float32 detector (not quantized) on the card against the CPU's int8: int8 gate "
+          f"{'passed' if float_passed else 'failed'} ({len(float_det['boxes'])} detections, IoU {f_iou:.4f}, "
+          f"|dscore| {f_ds:.4g})")
+    check(held or passed, f"int8 card against CPU fails both §2's gates {err} and the int8 gate "
+                          f"(IoU {worst_iou}, |dscore| {worst_ds})")
+    check(not float_passed, "the int8 gate passes the float32 detector: it cannot tell int8 from float")
+
+    # bfloat16, the single-image configuration: int8 beside float, in turns
+    serving = models["serving"]
+    q_serving = YoloV11PoseDetectionModel(device="cuda", **kw)
+    check(Q.quantize_detector(q_serving) == n, "the bfloat16 detector quantized another count")
+    images = [_photo(620 + s) for s in range(8)]
+    times = {"bfloat16": [], "int8": []}
+    single = {"bfloat16": _no_launches(), "int8": own["single"]}
+    for _ in range(2):
+        for label, model in (("bfloat16", serving), ("int8", q_serving)):
+            times[label] += _counted(single[label], lambda: _serve(model, images, SLICED_KW,  # noqa: B023
+                                                                    f"{label} single image"))[0]  # noqa: B023
+    per_image = {k: statistics.median(v) for k, v in times.items()}
+    for label, ms in per_image.items():
+        print(f"get_sliced_prediction {label}, 1024x1536, 6+1 tiles of {SLICE}: median {ms:.3f} ms/image over "
+              f"{len(times[label])} images (min {min(times[label]):.3f}, max {max(times[label]):.3f}); CHW gather "
+              f"launches {single[label]['gather_chw'] / (2 * len(images)):.2f} per image")
+    for label, model in (("bfloat16", serving), ("int8", q_serving)):
+        _profile(torch, lambda: get_sliced_prediction(images[0], model, **SLICED_KW), per_image[label],  # noqa: B023
+                 label=f"single image {label}")
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU]) as prof:
+        get_sliced_prediction(images[0], q_serving, **SLICED_KW)
+    ops = {e.key: e.count for e in prof.key_averages() if e.key in ("aten::_int_mm", "aten::convolution")}
+    float_convs = sum(1 for m in q_serving.model.modules() if isinstance(m, torch.nn.Conv2d))
+    print(f"int8 image: {ops} ({n} int8 layers, {float_convs} float convs, 2 forwards: the tiles and the full view)")
+    check(ops.get("aten::_int_mm") == 2 * n and ops.get("aten::convolution") == 2 * float_convs,
+          f"the int8 detector ran {ops}, not {2 * n} int8 GEMMs and {2 * float_convs} float convs")
+
+    # the GEMMs alone: each int8 layer's _int_mm at the shape one image gives it
+    shapes = []
+    hooks = [m.register_forward_hook(lambda mod, i, o: shapes.append((o.shape[0] * o.shape[2] * o.shape[3], mod)))
+             for m in q_serving.model.modules() if isinstance(m, Int8ConvBnAct)]
+    get_sliced_prediction(images[0], q_serving, **SLICED_KW)
+    for h in hooks:
+        h.remove()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    gemm_ms = ops_total = 0.0
+    for rows, layer in shapes:
+        w = layer.gemm_weight[0]
+        a = torch.randint(-127, 128, (max(rows, 17), w.shape[1]), generator=gen, device="cuda", dtype=torch.int8)
+        gemm_ms += event_ms(torch, lambda: torch._int_mm(a, w.t()), reps=10)  # noqa: B023
+        ops_total += 2.0 * rows * w.shape[1] * w.shape[0]
+    print(f"the {len(shapes)} int8 GEMMs of one image alone: {gemm_ms:.3f} ms, {ops_total / 1e9:.2f} GOP, "
+          f"{ops_total / gemm_ms / 1e9:.1f} TOPS, {100 * ops_total / (gemm_ms / 1e3) / INT8_TOPS:.2f}% of the "
+          f"{INT8_TOPS / 1e12:.0f} TOPS int8 peak")
+
+    # detection agreement, int8 against float bfloat16
+    recall, precision, found = [], [], [0, 0]
+    for im in images:
+        f = get_sliced_prediction(im, serving, **SLICED_KW).detections.to_numpy()["boxes"]
+        q = get_sliced_prediction(im, q_serving, **SLICED_KW).detections.to_numpy()["boxes"]
+        recall.append(_match_rate(f, q))
+        precision.append(_match_rate(q, f))
+        found[0] += len(f)
+        found[1] += len(q)
+    print(f"int8 against float bfloat16 on {len(images)} photos at IoU 0.5: recall {np.mean(recall):.4f}, precision "
+          f"{np.mean(precision):.4f} ({found[1]} int8 and {found[0]} float detections)")
+
+    # the serving configuration: batch 64, window 3, dct420s, int8 against bfloat16 in turns
+    coded = [_coded_photo(300 + s)[1] for s in range(8)]
+
+    def stream(model, batches):
+        t0 = time.perf_counter()
+        k = sum(raw.boxes.shape[0] for raw in predict_stream_batched(
+            (coded[i % len(coded)] for i in range(SERVING_BATCH * batches)), model, batch_size=SERVING_BATCH, window=3,
+            raw=True, input_format="dct420s", **SERVING_KW))
+        check(k == SERVING_BATCH * batches, f"the stream answered {k} images")
+        return SERVING_BATCH * batches / (time.perf_counter() - t0)
+
+    rates = {"bfloat16": [], "int8": []}
+    for model in (serving, q_serving):
+        stream(model, 1)  # warm-up
+    for _ in range(2):
+        for label, model in (("bfloat16", serving), ("int8", q_serving)):
+            run = lambda: stream(model, 3)  # noqa: B023, E731
+            rates[label].append(_counted(own["stream"], run) if label == "int8" else run())
+    for label, r in rates.items():
+        print(f"serving {label}: {statistics.median(r):.2f} images/s (passes of 3 batches of {SERVING_BATCH}: "
+              f"{', '.join(f'{x:.2f}' for x in r)})")
+    print(f"int8 against bfloat16: {statistics.median(rates['int8']) / statistics.median(rates['bfloat16']):.3f}x "
+          f"the images per second, {per_image['int8'] / per_image['bfloat16']:.3f}x the ms per image")
+    print(f"launches of the int8 runs alone: the float32 card detector on 1 image {own['card']}, the bfloat16 "
+          f"single image on {2 * len(images)} images {own['single']}, the stream on {2 * 3 * SERVING_BATCH} images "
+          f"{own['stream']}")
+    check(own["card"]["gather_chw"] > 0 and own["single"]["gather_chw"] > 0,
+          f"an int8 single-image run did not launch the CHW gather: {own}")
+    check(own["stream"]["gather_chw_batched"] > 0, f"the int8 stream did not launch the batched gather: {own['stream']}")
+    return {k: sum(c[k] for c in own.values()) for k in _no_launches()}
+
+
+def video_phase(torch, models, root):
+    """Returns the launch counts of the video paths."""
+    phase(f"32 video: an MJPEG AVI of {VIDEO_FRAMES} frames of 1024x1536 through predict() (rgb, dct420) and "
+          f"FaceDetector.detect_video")
+    import numpy as np
+
+    from facedet_tpu_torch import get_sliced_prediction, predict
+    from facedet_tpu_torch.data.video import read_video_frames, video_info, write_video
+    from facedet_tpu_torch.data import native_loader
+    from facedet_tpu_torch.engine import predict as P
+    from facedet_tpu_torch.engine.rtdetr_wrapper import FaceDetector
+
+    path = os.path.join(root, "clip.avi")
+    check(write_video(path, (_photo(700 + s) for s in range(VIDEO_FRAMES)), fps=10.0) == VIDEO_FRAMES,
+          "write_video wrote another frame count")
+    info = video_info(path)
+    check((info["width"], info["height"], info["num_frames"]) == (CANVAS[1], CANVAS[0], VIDEO_FRAMES), f"video_info {info}")
+    # launches are counted over predict() and detect_video alone (``own``), not the comparisons
+    own = {"rgb": _no_launches(), "dct420": _no_launches(), "detect_video": _no_launches()}
+    kw = dict(slice_height=SLICE, slice_width=SLICE, verbose=0)
+    for ingest in ("rgb", "dct420"):
+        out = _counted(own[ingest], lambda: predict(  # noqa: B023
+            detection_model=models["cuda"], source=path, project=os.path.join(root, "runs"), name=ingest,
+            ingest=ingest, **kw))  # noqa: B023
+        check(out["num_frames"] == VIDEO_FRAMES, f"predict() on the video ({ingest}): {out['num_frames']} frames")
+        annotated = os.path.join(out["export_dir"], "clip_detections.avi")
+        check(os.path.exists(annotated) and video_info(annotated)["num_frames"] == VIDEO_FRAMES,
+              f"predict() ({ingest}) wrote no annotated AVI of {VIDEO_FRAMES} frames")
+        with open(os.path.join(out["export_dir"], "result.json")) as f:
+            coco = json.load(f)
+        check({d["image_id"] for d in coco} == set(range(VIDEO_FRAMES)), f"the COCO json ({ingest}) misses a frame")
+        t0 = time.perf_counter()
+        frames = list(read_video_frames(path, ingest=ingest))
+        read_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for frame in frames[:2]:
+            P._display_image(frame)
+        display_ms = 1e3 * (time.perf_counter() - t0) / 2
+        for i, frame in enumerate(frames):
+            want = get_sliced_prediction(frame, models["cuda"], input_format=ingest, slice_height=SLICE,
+                                         slice_width=SLICE).to_coco_predictions(image_id=i)
+            mine = [d for d in coco if d["image_id"] == i]
+            check(len(mine) == len(want), f"frame {i} ({ingest}): {len(mine)} detections, its own call {len(want)}")
+            if want:
+                box = float(np.abs(np.array([d["bbox"] for d in mine]) - np.array([d["bbox"] for d in want])).max())
+                score = float(np.abs(np.array([d["score"] for d in mine]) - np.array([d["score"] for d in want])).max())
+                check(box <= BOX_ATOL and score <= SCORE_ATOL, f"frame {i} ({ingest}): boxes {box}, scores {score}")
+        print(f"predict() on the AVI, ingest={ingest}, float32: {out['fps_processed']:.2f} frames/s with the annotated "
+              f"AVI written; {len(coco)} detections, each frame's equal to get_sliced_prediction on the decoded frame; "
+              f"on the host per frame: the reader {1e3 * read_s / VIDEO_FRAMES:.1f} ms (native jpeg reader "
+              f"{'built' if native_loader._load_native() is not None else 'not built: PIL and a host encode'}), "
+              f"the display image {display_ms:.1f} ms")
+    fd = FaceDetector(variant="rtdetr-l", conf=0.5, image_size=SLICE, device="cuda")
+    res = _counted(own["detect_video"], lambda: fd.detect_video(path, os.path.join(root, "rtdetr.avi"), verbose=False))
+    check(res["frames"] == VIDEO_FRAMES and video_info(os.path.join(root, "rtdetr.avi"))["num_frames"] == VIDEO_FRAMES,
+          f"detect_video: {res}")
+    print(f"FaceDetector.detect_video (rtdetr-l seeded, bfloat16): {res['frames'] / res['seconds']:.2f} frames/s, "
+          f"{res['faces']} boxes over {res['frames']} frames")
+    try:
+        list(fd.detect_webcam(device=os.path.join(root, "no-camera")))
+    except RuntimeError as e:
+        check("webcam" in str(e), f"detect_webcam raised {e}")
+        print(f"detect_webcam without a camera: RuntimeError ({e})")
+    else:
+        check(False, "detect_webcam without a camera did not raise")
+    print(f"launches of the video runs alone: predict() rgb {own['rgb']}, dct420 {own['dct420']}, detect_video "
+          f"{own['detect_video']} ({VIDEO_FRAMES} frames each)")
+    check(own["rgb"]["gather_chw"] > 0 and own["dct420"]["gather_chw"] > 0,
+          f"predict() on the video did not launch the CHW gather: {own}")
+    return {k: sum(c[k] for c in own.values()) for k in _no_launches()}
+
+
 def main() -> int:
     try:
         import torch
@@ -2600,11 +2960,15 @@ def main() -> int:
         detr_sr_fidelity_phase(torch)
         detr_sr_main_path_phase(torch)
         detr_sr_learning_phase(torch, eval_root)
+        conversion_phase(torch, eval_root)
+        family_counts["int8"] = int8_phase(torch, models)
+        family_counts["video"] = video_phase(torch, models, eval_root)
         for family, c in family_counts.items():
             check(c["gather_chw"] > 0, f"the {family} main path did not launch the CHW gather")
             for name, n in c.items():
                 counts[name] += n
-        print(f"launches on the evaluation paths (phases 21, 22): {family_counts['evaluation']}")
+        print(f"launches on the evaluation paths (phases 21, 22): {family_counts['evaluation']}; int8 (phase 31): "
+              f"{family_counts['int8']}; video (phase 32): {family_counts['video']}")
         check(family_counts["scrfd"]["gather_chw_batched"] > 0, "SCRFD's batch did not launch the batched gather")
         for k in KERNELS:
             check(counts[k["name"]] > 0, f"{k['name']} was not launched on its main path")

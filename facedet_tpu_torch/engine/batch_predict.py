@@ -6,8 +6,10 @@ image / COCO json), runs standard or sliced prediction per image, and
 exports visuals, crops, pickles and COCO predictions into an
 auto-incremented ``runs/predict/exp*`` directory; plus the reading-order
 aggregation helpers ``bbox_sort``/``agg_prediction`` (:348-382) and the
-low-confidence auto-switch to NMS/IOU (:523-528). Video sources are not
-ported yet.
+low-confidence auto-switch to NMS/IOU (:523-528). A video source goes to
+``predict_video`` (data/video.py decodes it; frames stream through
+``predict_stream``; an annotated MJPEG AVI and per-frame COCO detections
+are written).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ VIDEO_EXTENSIONS = (".mp4", ".avi", ".mov", ".mkv", ".webm", ".y4m", ".m4v")
 
 __all__ = [
     "predict",
+    "predict_video",
     "predict_fiftyone",
     "bbox_sort",
     "agg_prediction",
@@ -217,10 +220,31 @@ def predict(
     """Folder/image/COCO batch prediction (docs sahi/predict.py:385).
     ``ingest`` picks the upload format of the sliced path: ``"yuv420"``
     decodes JPEGs to planes, ``"dct420"`` / ``"dct420s"`` read their stored
-    coefficients (data/native_loader.py). A video source raises: the video
-    branch is not ported yet."""
+    coefficients (data/native_loader.py). A video source streams through
+    ``predict_video`` with the same options."""
     if source and str(source).lower().endswith(VIDEO_EXTENSIONS):
-        raise NotImplementedError("video sources are not yet ported to facedet_tpu_torch")
+        return predict_video(
+            ingest=ingest,
+            detection_model=detection_model,
+            source=source,
+            no_standard_prediction=no_standard_prediction,
+            no_sliced_prediction=no_sliced_prediction,
+            image_size=image_size,
+            slice_height=slice_height,
+            slice_width=slice_width,
+            overlap_height_ratio=overlap_height_ratio,
+            overlap_width_ratio=overlap_width_ratio,
+            postprocess_type=postprocess_type,
+            postprocess_match_metric=postprocess_match_metric,
+            postprocess_match_threshold=postprocess_match_threshold,
+            postprocess_class_agnostic=postprocess_class_agnostic,
+            novisual=novisual,
+            model_confidence_threshold=model_confidence_threshold,
+            project=project,
+            name=name,
+            verbose=verbose,
+            return_dict=return_dict,
+        )
     from facedet_tpu_torch.data.native_loader import load_image
     from facedet_tpu_torch.engine.predict import get_prediction, get_sliced_prediction
     from facedet_tpu_torch.utils.viz import (
@@ -347,5 +371,110 @@ def predict(
             "export_dir": str(save_dir),
             "durations_in_seconds": durations,
             "num_images": num_images,
+        }
+    return None
+
+
+def predict_video(
+    detection_model=None,
+    source: Optional[str] = None,
+    no_standard_prediction: bool = False,
+    no_sliced_prediction: bool = False,
+    image_size: Optional[int] = None,
+    slice_height: int = 512,
+    slice_width: int = 512,
+    overlap_height_ratio: float = 0.2,
+    overlap_width_ratio: float = 0.2,
+    postprocess_type: str = "GREEDYNMM",
+    postprocess_match_metric: str = "IOS",
+    postprocess_match_threshold: float = 0.5,
+    postprocess_class_agnostic: bool = False,
+    novisual: bool = False,
+    model_confidence_threshold: Optional[float] = None,
+    frame_skip: int = 0,
+    project: str = "runs/predict",
+    name: str = "exp",
+    verbose: int = 1,
+    return_dict: bool = True,
+    ingest: str = "rgb",
+) -> Optional[dict]:
+    """Video branch of ``predict()`` (docs sahi/predict.py:385 video mode):
+    decode frames (data/video.py), run them through ``predict_stream`` (the
+    next frames' staging and device work overlap the current one's fetch),
+    and export an annotated MJPEG AVI and a per-frame COCO detections json.
+
+    ``ingest="dct420"``: MJPEG-AVI frames go up as their own stored JPEG
+    coefficients (no host IDCT); ``"yuv420"`` passes a Y4M's planes through.
+    Sliced mode only; the standard-prediction-only branch reads RGB."""
+    from facedet_tpu_torch.data.video import MjpegAviWriter, read_video_frames, video_info
+    from facedet_tpu_torch.engine.predict import get_prediction, predict_stream
+    from facedet_tpu_torch.utils.viz import draw_detections_on_image
+
+    if detection_model is None:
+        raise ValueError("detection_model is required")
+    if model_confidence_threshold is not None:
+        detection_model.confidence_threshold = model_confidence_threshold
+    if image_size is not None:
+        detection_model.image_size = image_size
+
+    info = video_info(source)
+    fps = float(info.get("fps") or 25.0)
+    save_dir = Path(increment_path(Path(project) / name))
+    save_dir.mkdir(parents=True, exist_ok=True)
+    stem = Path(source).stem
+
+    def frames(fmt):
+        for i, frame in enumerate(read_video_frames(source, ingest=fmt)):
+            if frame_skip and i % (frame_skip + 1):
+                continue
+            yield frame
+
+    if no_sliced_prediction:
+        results = (get_prediction(f, detection_model) for f in frames("rgb"))
+    else:
+        results = predict_stream(
+            frames(ingest),
+            detection_model,
+            slice_height=slice_height,
+            slice_width=slice_width,
+            overlap_height_ratio=overlap_height_ratio,
+            overlap_width_ratio=overlap_width_ratio,
+            perform_standard_pred=not no_standard_prediction,
+            postprocess_type=postprocess_type,
+            postprocess_match_metric=postprocess_match_metric,
+            postprocess_match_threshold=postprocess_match_threshold,
+            postprocess_class_agnostic=postprocess_class_agnostic,
+            input_format=ingest,
+        )
+
+    writer = None if novisual else MjpegAviWriter(
+        str(save_dir / f"{stem}_detections.avi"),
+        fps=fps / (frame_skip + 1),
+    )
+    coco_json = []
+    n_frames = 0
+    t0 = time.time()
+    for idx, result in enumerate(results):
+        n_frames += 1
+        coco_json.extend(result.to_coco_predictions(image_id=idx))
+        if writer is not None:
+            writer.write(draw_detections_on_image(result.image, result.object_prediction_list))
+        if verbose and idx % 25 == 0:
+            print(f"frame {idx}: {len(result.object_prediction_list)} detections")
+    elapsed = time.time() - t0
+    if writer is not None and n_frames:
+        writer.close()
+    with open(save_dir / "result.json", "w") as f:
+        json.dump(coco_json, f)
+    if verbose:
+        print(
+            f"{n_frames} frames in {elapsed:.1f}s "
+            f"({n_frames / max(elapsed, 1e-9):.2f} fps) -> {save_dir}"
+        )
+    if return_dict:
+        return {
+            "export_dir": str(save_dir),
+            "num_frames": n_frames,
+            "fps_processed": n_frames / max(elapsed, 1e-9),
         }
     return None

@@ -13,8 +13,9 @@ constructor raises unless the caller asked for ``device="cpu"``; nothing
 falls back to the CPU on its own.
 
 Weights: ``model_path`` is a ``.npz`` of flat flax variables (the JAX
-package's checkpoints, carried over by models/from_jax.py) or ``None`` for a
-random init from a seeded ``torch.Generator``.
+package's checkpoints, carried over by models/from_jax.py; an int8 tree of
+models/quantize.py too), an ultralytics ``.pt`` (models/convert.py) or
+``None`` for a random init from a seeded ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -240,6 +241,12 @@ class YoloV11PoseDetectionModel(DetectionModel):
         super().__init__(*args, **kwargs)
 
     def load_model(self) -> None:
+        self.model = self.float32_model().set_dtypes().to(self.device).eval()
+
+    def float32_model(self):
+        """The model as its checkpoint (or seed) gives it: float32 on the
+        CPU, before ``set_dtypes`` casts its convs to the compute dtype.
+        models/quantize.py quantizes a bfloat16 detector's kernels from it."""
         from facedet_tpu_torch.models.from_jax import load_jax_variables, load_params_npz
         from facedet_tpu_torch.models.yolov11 import YoloConfig, YoloV11
 
@@ -256,10 +263,14 @@ class YoloV11PoseDetectionModel(DetectionModel):
         elif str(self.model_path).endswith(".npz"):
             load_jax_variables(model, load_params_npz(self.model_path))
         elif str(self.model_path).endswith(".pt"):
-            raise NotImplementedError(".pt checkpoint conversion is not yet ported")
+            from facedet_tpu_torch.models.convert import convert_ultralytics_checkpoint
+            from facedet_tpu_torch.models.from_jax import _load_strict
+
+            state, _scale = convert_ultralytics_checkpoint(self.model_path, self.cfg)
+            _load_strict(model, state)
         else:
             raise ValueError(f"unsupported checkpoint format: {self.model_path}")
-        self.model = model.set_dtypes().to(self.device).eval()
+        return model
 
     def tile_forward_nchw(self, tiles: torch.Tensor, conf_threshold: float) -> Detections:
         from facedet_tpu_torch.models.yolo_decode import decode_predictions, decode_to_detections

@@ -38,6 +38,14 @@ their head axes back from a head map (``attention_heads(model)``: RT-DETR's
 ``MultiHeadAttention``, TOPIQ's packed ``in_proj_*`` too); without it they
 raise.
 
+An int8 tree of the JAX package's ``quantize_variables`` holds, at each
+quantized ``ConvBnAct`` scope, ``qkernel`` (int8 HWIO, carried as int8
+OIHW), ``ascale``, ``oscale`` and ``obias`` (float32, by name) and no
+``batch_stats``; ``load_jax_variables`` first swaps the module at each such
+scope for an ``Int8ConvBnAct`` (models/quantize.int8_shells), and
+``to_jax_variables`` gives the same leaves back, so a ``save_params_npz`` of
+an int8 detector loads in the JAX package.
+
 ``load_discriminator_variables`` carries the flax ``PatchDiscriminator``
 (facedet_tpu/train/sr_gan.py): its ``params`` as above and its spectral-norm
 statistics, kept by flax under ``batch_stats/SpectralNorm_<i>`` with keys
@@ -73,6 +81,8 @@ _LEAVES = {
 }
 # parameters that a flax module owns directly (no submodule, no leaf name)
 _BARE_PARAMS = re.compile(r"dn_embed|scale_embed\d+")
+# the leaves of an int8 ConvBnAct scope (models/quantize.py), kept by name
+_INT8_LEAVES = ("qkernel", "ascale", "oscale", "obias")
 
 
 def load_params_npz(path: str) -> dict:
@@ -103,19 +113,23 @@ def from_jax_variables(tree: dict) -> dict[str, torch.Tensor]:
     Conv kernels HWIO become OIHW (``transpose(3, 2, 0, 1)``, grouped convs
     included); Dense kernels ``[in, out]`` become ``[out, in]``; attention
     kernels fold their head axes (``out/kernel`` ``[H, dh, D]`` on the input
-    side, the others ``[D, H, dh]`` on the output side). Quantised (int8)
-    params are not ported yet."""
+    side, the others ``[D, H, dh]`` on the output side). The int8 leaves
+    keep their names, ``qkernel`` its int8 type (HWIO -> OIHW)."""
     state: dict[str, torch.Tensor] = {}
     for path, arr in _walk(tree):
         collection, leaf = path[0], path[-1]
+        if collection == "params" and leaf in _INT8_LEAVES:
+            arr = np.asarray(arr, np.int8 if leaf == "qkernel" else np.float32)
+            if leaf == "qkernel":
+                arr = arr.transpose(3, 2, 0, 1)
+            state[".".join(path[1:])] = torch.from_numpy(np.array(arr, order="C"))  # 0-d ascale stays 0-d
+            continue
         arr = np.asarray(arr, np.float32)
         if collection == "params" and len(path) == 2 and _BARE_PARAMS.fullmatch(leaf):
             state[leaf] = torch.from_numpy(np.ascontiguousarray(arr))
             continue
         name = _LEAVES.get((collection, leaf))
         if name is None:
-            if leaf in ("qkernel", "ascale", "oscale", "obias"):
-                raise NotImplementedError("int8 (quantised) checkpoints are not yet ported")
             raise KeyError(f"unexpected flax variable {'/'.join(path)}")
         if leaf == "kernel":
             if arr.ndim == 4:
@@ -181,6 +195,13 @@ def to_jax_variables(state: dict[str, torch.Tensor], heads: dict[str, int] | Non
         *mods, leaf = key.split(".")
         if leaf == "num_batches_tracked":
             continue
+        if leaf in _INT8_LEAVES:
+            node = tree.setdefault("params", {})
+            for m in mods:
+                node = node.setdefault(m, {})
+            arr = value.detach().cpu().numpy()
+            node[leaf] = np.array(arr.transpose(2, 3, 1, 0) if leaf == "qkernel" else arr, order="C")
+            continue
         arr = value.detach().to("cpu", torch.float32).numpy()
         parent = ".".join(mods[:-1])
         if not mods:
@@ -215,7 +236,11 @@ def to_jax_variables(state: dict[str, torch.Tensor], heads: dict[str, int] | Non
 def load_jax_variables(module: nn.Module, tree: dict) -> None:
     """Load flax variables into ``module``; raises on a missing or extra key
     or a shape mismatch. BatchNorm step counters, which flax does not keep,
-    are set to 0."""
+    are set to 0. The scopes of an int8 tree (those with a ``qkernel``)
+    become ``Int8ConvBnAct`` modules first."""
+    from facedet_tpu_torch.models.quantize import int8_shells
+
+    int8_shells(module, [p[1:-1] for p, _ in _walk(tree) if p[0] == "params" and p[-1] == "qkernel"])
     _load_strict(module, from_jax_variables(tree))
 
 

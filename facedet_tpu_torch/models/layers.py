@@ -9,6 +9,10 @@ Parity notes: BatchNorm eps is 1e-3 and, in train mode, flax's statistics
 (``FlaxBatchNorm2d``, momentum 0.97); ``padding=k//2`` is symmetric in both
 frameworks; max-pool pads with -inf; in ``PSAAttention`` the qkv channels are
 split per head as ``[heads, 2*key_dim + head_dim]``, as in the NHWC original.
+
+``Int8ConvBnAct`` is the int8 serving form of ``ConvBnAct`` (the reference's
+``ConvBnAct._int8_forward``); models/quantize.py swaps it in, and
+models/from_jax.py builds it where a flax tree holds a ``qkernel``.
 """
 from __future__ import annotations
 
@@ -20,6 +24,8 @@ __all__ = [
     "FlaxBatchNorm2d",
     "make_divisible",
     "ConvBnAct",
+    "Int8ConvBnAct",
+    "int8_matmul",
     "Bottleneck",
     "C3k",
     "C3k2",
@@ -89,6 +95,97 @@ class ConvBnAct(nn.Module):
         x = self.conv(x.to(self.conv.weight.dtype))
         x = self.bn(x.float()).to(self.bn_dtype)
         return F.silu(x) if self.act else x
+
+
+def int8_matmul(a: torch.Tensor, w_nk: torch.Tensor, n: int) -> torch.Tensor:
+    """``a`` int8 [M, K] times ``w_nk`` int8 [N', K'] transposed -> int32
+    [M, n], summed exactly. ``torch._int_mm`` on CUDA takes more than 16
+    rows and K and N that are multiples of 8: ``w_nk`` comes padded with
+    zeros to that (``K' >= K``, ``N' >= n``), ``a`` is padded here where it
+    falls short, and the padding adds nothing to any sum. A shape it still
+    refuses raises; nothing falls back to a float product."""
+    m, k = a.shape
+    if k != w_nk.shape[1] or m <= 16:
+        a = F.pad(a, (0, w_nk.shape[1] - k, 0, max(0, 17 - m)))
+    return torch._int_mm(a, w_nk.t())[:m, :n]
+
+
+def _pad8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+class Int8ConvBnAct(nn.Module):
+    """``ConvBnAct`` with int8 weights: the reference's int8 serving path
+    (facedet_tpu/models/layers.py ``_int8_forward``).
+
+    Buffers (the flax leaf names): ``qkernel`` int8 ``[Cout, Cin/groups, k,
+    k]`` (OIHW, as every conv weight of the port), ``ascale`` the float32
+    activation scale, ``oscale`` / ``obias`` float32 ``[Cout]`` (the scales
+    and the folded BatchNorm). The forward is the reference's, step by step:
+
+    1. ``xq = int8(clip(round(float32(x) / ascale), -127, 127))``, a true
+       division by ``ascale`` as XLA does it for a runtime parameter;
+    2. ``acc = conv(xq, qkernel)`` in int32, exactly: the k x k windows of
+       the zero-padded NHWC int8 input are gathered by slicing into ``[B*Ho*Wo,
+       k*k*Cin]`` (padding stays 0 whether quantized before or after) and
+       multiplied by the kernel flattened to ``[k*k*Cin, Cout]`` in one
+       ``torch._int_mm`` per group (``int8_matmul``), on the CPU and the
+       card alike;
+    3. ``y = bn_dtype(float32(acc) * oscale + obias)``, then SiLU if ``act``.
+
+    The GEMM's weight (``[Cout', k*k*Cin']``, zero-padded to multiples of 8)
+    is derived from ``qkernel`` and rebuilt whenever a state dict is
+    loaded; it is not saved. The output is NCHW in shape with NHWC memory."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 1, stride: int = 1, groups: int = 1, act: bool = True):
+        super().__init__()
+        self.kernel, self.stride, self.groups, self.act = kernel, stride, groups, act
+        self.bn_dtype = torch.float32
+        self.register_buffer("qkernel", torch.zeros(cout, cin // groups, kernel, kernel, dtype=torch.int8))
+        self.register_buffer("ascale", torch.ones(()))
+        self.register_buffer("oscale", torch.ones(cout))
+        self.register_buffer("obias", torch.zeros(cout))
+        self.register_buffer("gemm_weight", torch.empty(0, dtype=torch.int8), persistent=False)
+        self.pack()
+        self.register_load_state_dict_post_hook(lambda module, _keys: module.pack())
+
+    def pack(self) -> None:
+        """Rebuild ``gemm_weight`` [groups, N', K'] from ``qkernel``: each
+        group's rows in (dy, dx, c) order, zero-padded."""
+        cout, cin_g, k, _ = self.qkernel.shape
+        n_g = cout // self.groups
+        w = self.qkernel.reshape(self.groups, n_g, cin_g, k, k).permute(0, 1, 3, 4, 2).reshape(self.groups, n_g, k * k * cin_g)
+        self.gemm_weight = F.pad(w, (0, _pad8(k * k * cin_g) - k * k * cin_g, 0, _pad8(n_g) - n_g)).contiguous()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        k, s, p = self.kernel, self.stride, self.kernel // 2
+        ho, wo = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+        # float32 NHWC in one copy, then the reference's quantization
+        q = torch.empty((b, h, w, c), dtype=torch.float32, device=x.device).copy_(x.permute(0, 2, 3, 1))
+        q = torch.div(q, self.ascale)
+        torch.round(q, out=q)
+        torch.clamp(q, -127.0, 127.0, out=q)
+        xq = q.to(torch.int8)
+        if p:
+            xq = F.pad(xq, (0, 0, p, p, p, p))
+        if k == 1 and s == 1:
+            cols = xq.reshape(b * ho * wo, 1, c)
+        else:
+            span_h, span_w = s * (ho - 1) + 1, s * (wo - 1) + 1
+            cols = torch.stack(
+                [xq[:, dy : dy + span_h : s, dx : dx + span_w : s] for dy in range(k) for dx in range(k)], dim=3
+            ).reshape(b * ho * wo, k * k, c)
+        n_g, cin_g = self.qkernel.shape[0] // self.groups, c // self.groups
+        accs = [
+            int8_matmul(cols[:, :, g * cin_g : (g + 1) * cin_g].reshape(b * ho * wo, k * k * cin_g), self.gemm_weight[g], n_g)
+            for g in range(self.groups)
+        ]
+        acc = accs[0] if self.groups == 1 else torch.cat(accs, dim=1)
+        y = (acc * self.oscale + self.obias).to(self.bn_dtype)
+        if self.act:
+            y = F.silu(y)
+        return y.reshape(b, ho, wo, -1).permute(0, 3, 1, 2)
 
 
 class Bottleneck(nn.Module):

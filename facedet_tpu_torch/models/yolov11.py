@@ -14,7 +14,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from facedet_tpu_torch.models.layers import C2PSA, C3k2, ConvBnAct, SPPF, make_divisible, upsample2x
+from facedet_tpu_torch.models.layers import C2PSA, C3k2, ConvBnAct, Int8ConvBnAct, SPPF, make_divisible, upsample2x
 
 __all__ = ["SCALES", "STRIDES", "REG_MAX", "YoloConfig", "Backbone", "PanNeck", "DetectHead", "YoloV11"]
 
@@ -176,7 +176,7 @@ class YoloV11(nn.Module):
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
                 m.to(self.cfg.compute_dtype)
-            elif isinstance(m, ConvBnAct):
+            elif isinstance(m, (ConvBnAct, Int8ConvBnAct)):
                 m.bn_dtype = self.cfg.bn_compute_dtype
         return self
 

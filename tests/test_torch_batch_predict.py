@@ -191,10 +191,19 @@ def test_predict_coco_export(model, input_dir, tmp_path):
 
 
 def test_predict_video_source_is_not_ported(model):
-    for name in ("clip.mp4", "CLIP.AVI", "frames.y4m"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            predict(detection_model=model, source=name)
-    assert not hasattr(tbatch, "predict_video")
+    """A video source goes to predict_video (ported since this test was
+    written; tests/test_torch_video.py runs it): a missing file raises what
+    the JAX package's predict raises for it."""
+    import shutil
+
+    missing = {"CLIP.AVI": FileNotFoundError, "frames.y4m": FileNotFoundError}
+    if shutil.which("ffmpeg") is None:
+        missing["clip.mp4"] = RuntimeError  # no ffprobe to read the header
+    for name, error in missing.items():
+        for run in (predict, jbatch.predict):
+            with pytest.raises(error):
+                run(detection_model=model, source=name)
+    assert tbatch.predict_video.__name__ == jbatch.predict_video.__name__
 
 
 def test_predict_fiftyone_with_stub(model, input_dir, monkeypatch):

@@ -116,8 +116,9 @@ def test_get_prediction_tensor_input_stays_a_tensor(models, image):
 
 
 def test_unported_options_raise(models, image):
-    """What is still unported raises: the mesh, several devices, a video
-    source. The input formats are ported and no longer raise."""
+    """What is still unported raises: the mesh, several devices. The input
+    formats and video sources are ported and no longer raise
+    NotImplementedError (a missing video file raises as in JAX)."""
     from facedet_tpu_torch import predict, predict_stream_batched
 
     _, model = models
@@ -125,8 +126,8 @@ def test_unported_options_raise(models, image):
         get_sliced_prediction(image, model, mesh=object())
     with pytest.raises(NotImplementedError, match="not yet ported"):
         list(predict_stream_batched([image], model, devices=["cpu", "cpu"]))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        predict(detection_model=model, source="clip.mp4")
+    with pytest.raises(FileNotFoundError):
+        predict(detection_model=model, source="clip.avi")
     assert len(get_sliced_prediction(image, model, input_format="yuv420", **SLICED).object_prediction_list) > 0
 
 

@@ -249,10 +249,13 @@ def test_random_init_is_seeded_and_unported_parts_raise(tmp_path):
     outs = m(torch.zeros(1, 64, 64, 3), dn_labels=torch.tensor([[0, 1, 0, 1]]), dn_ref=torch.full((1, 4, 4), 0.5),
              dn_groups=2)
     assert outs["dn_logits"][-1].shape == (1, 4, 1) and outs["logits"][-1].shape == (1, 60, 1)
+    # the video and webcam modes are ported (tests/test_torch_video.py): a
+    # missing file and a missing camera raise as in the JAX package
     fd = FaceDetector(variant="rtdetr-tiny", conf=0.1, image_size=64, device="cpu")
-    for call in (lambda: fd.detect_video("a.avi", "b.avi"), lambda: fd.detect_webcam()):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            call()
+    with pytest.raises(FileNotFoundError):
+        fd.detect_video(str(tmp_path / "a.avi"), str(tmp_path / "b.avi"))
+    with pytest.raises(RuntimeError, match="webcam"):
+        list(fd.detect_webcam(device=str(tmp_path / "no-camera")))
 
 
 def test_face_detector_image_and_folder_modes(tmp_path):
