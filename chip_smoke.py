@@ -163,7 +163,33 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    against get_sliced_prediction on the decoded frame, the annotated AVI
    and the COCO json; FaceDetector.detect_video with the seeded rtdetr-l;
    frames per second of each; detect_webcam without a camera raises;
-33. report: the wall seconds of every phase, a ``kernels`` JSON line, the nvidia-smi line, and last the
+33. ONNX export: the golden scrfd_2.5g at 640x640 through the generic entry
+   (export_torch_to_onnx), re-parsed by the port's parser (node and
+   initializer counts, names, the input shape); save_onnx of the parsed
+   graph re-parses to the same graph; the exported graph on the card
+   through ScrfdDetectionModel against the native route under PERF.md §2's
+   gates, its gather launches counted in a window of their own;
+34. multi-device inference at world 1 over NCCL (the card is one GPU, and
+   NCCL takes one rank per device): an in-process group and a (1, 1) mesh;
+   golden yolo11n in float32: get_sliced_prediction(mesh=) against the
+   plain call under §2's gates, ms per image of both;
+   predict_stream_batched(devices=["cuda:0", "cuda:0"]) in the serving
+   configuration against devices=None (equal counts, scores within 1e-5,
+   boxes within 1e-3, order), images per second of both;
+   predict_stream_multidevice on 8 images against single calls, in order;
+   the gather launches of each run counted in a window of its own;
+35. sharded training at world 1: make_sharded_train_step on yolo11n-pose
+   (golden), 640x640, batch 8, float32, TF32 off, against make_train_step
+   from the same state with SGD: loss parts within 1e-4 relative, every
+   parameter's update within 1e-3 of its leaf's largest (phase 24's
+   gradient gate; an SGD update is the gradient scaled), the BatchNorm
+   running statistics within 1e-5; then with make_optimizer's AdamW, plain,
+   sharded, and sharded with every BatchNorm all-reducing over the one-rank
+   dp group (the step itself skips that at world 1): ms per step, kernel
+   launches and device busy per step; two steps of
+   make_sharded_staged_train_loop with flip, a finite loss; the process
+   group is destroyed after it;
+36. report: the wall seconds of every phase, a ``kernels`` JSON line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 It imports nothing of jax or facedet_tpu and needs the checkout: run alone
@@ -2908,6 +2934,240 @@ def video_phase(torch, models, root):
     return {k: sum(c[k] for c in own.values()) for k in _no_launches()}
 
 
+def onnx_export_phase(torch):
+    """Returns the CHW gather launches of the exported graph's run."""
+    phase("33 ONNX export: golden scrfd_2.5g at 640x640 through export_torch_to_onnx, re-parsed and re-saved, "
+          "run on the card against the native route")
+    from facedet_tpu_torch import get_sliced_prediction
+    from facedet_tpu_torch.engine.scrfd_wrapper import ScrfdDetectionModel
+    from facedet_tpu_torch.models import onnx_export
+    from facedet_tpu_torch.models.onnx_import import parse_onnx
+
+    kw = dict(variant="scrfd_2.5g", dtype="float32", image_size=SLICE, confidence_threshold=0.3)
+    cpu = ScrfdDetectionModel(model_path=SCRFD_CKPT, device="cpu", **kw)
+    native = ScrfdDetectionModel(model_path=SCRFD_CKPT, device="cuda", **kw)
+    names = [f"{k}_{s}" for k in ("score", "bbox", "kps") for s in (8, 16, 32)]
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        path = os.path.join(tmp, "scrfd_2.5g.onnx")
+        t0 = time.perf_counter()
+        graph = onnx_export.export_scrfd_onnx(cpu.model, SLICE, path)
+        export_s = time.perf_counter() - t0
+        reparsed = parse_onnx(path)
+        check(len(reparsed.nodes) > 300 and len(reparsed.initializers) > 200,
+              f"the exported SCRFD holds {len(reparsed.nodes)} nodes and {len(reparsed.initializers)} initializers")
+        check(reparsed.input_names == ["input.1"] and reparsed.input_shapes["input.1"] == [1, 3, SLICE, SLICE]
+              and reparsed.output_names == names, "the exported SCRFD's names or input shape")
+        diff = _graph_difference(reparsed, graph)
+        check(not diff, f"the file does not re-parse to the graph export_scrfd_onnx returned: {diff}")
+        again = os.path.join(tmp, "resaved.onnx")
+        onnx_export.save_onnx(reparsed, again)
+        diff = _graph_difference(parse_onnx(again), reparsed)
+        check(not diff, f"save_onnx(parse_onnx(path)) re-parses to another graph: {diff}")
+        print(f"export_scrfd_onnx at {SLICE}x{SLICE}: {len(reparsed.nodes)} nodes, {len(reparsed.initializers)} "
+              f"initializers, {os.path.getsize(path) / 1e6:.2f} MB in {export_s:.1f} s; save_onnx(parse_onnx(path)) "
+              f"re-parses to the same graph ({os.path.getsize(again)} bytes, the file "
+              f"{'equal' if open(again, 'rb').read() == open(path, 'rb').read() else 'different'} byte for byte)")
+        onnx_model = ScrfdDetectionModel(model_path=path, device="cuda", **kw)
+    image = _photo(560)
+    want = get_sliced_prediction(image, native, **SLICED_KW).detections.to_numpy()
+    check(len(want["boxes"]) > 0, "the native SCRFD found nothing")
+    own = _no_launches()
+    got = _counted(own, lambda: get_sliced_prediction(image, onnx_model, **SLICED_KW)).detections.to_numpy()
+    _compare(got, want, "SCRFD exported through export_torch_to_onnx", ".onnx route vs native, on the card")
+    check(own["gather_chw"] == 1, f"the exported graph's run launched {own}")
+    return own
+
+
+def _graph_difference(a, b) -> str:
+    """The first difference between two OnnxGraphs, "" when they are equal."""
+    import numpy as np
+
+    def same(x, y):
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            return isinstance(x, np.ndarray) and isinstance(y, np.ndarray) and x.dtype == y.dtype \
+                and np.array_equal(x, y, equal_nan=x.dtype.kind == "f")
+        return x == y or (x != x and y != y)
+
+    for field in ("name", "input_names", "output_names", "input_shapes"):
+        if getattr(a, field) != getattr(b, field):
+            return f"{field}: {getattr(a, field)} against {getattr(b, field)}"
+    if len(a.nodes) != len(b.nodes):
+        return f"{len(a.nodes)} nodes against {len(b.nodes)}"
+    for x, y in zip(a.nodes, b.nodes):
+        if (x.op_type, x.inputs, x.outputs, x.name) != (y.op_type, y.inputs, y.outputs, y.name) \
+                or x.attrs.keys() != y.attrs.keys() or not all(same(x.attrs[k], y.attrs[k]) for k in x.attrs):
+            return f"node {x} against {y}"
+    if a.initializers.keys() != b.initializers.keys():
+        return f"initializers {sorted(set(a.initializers) ^ set(b.initializers))[:5]}"
+    for k, v in a.initializers.items():
+        if not same(v, b.initializers[k]):
+            return f"initializer {k}: {v.dtype}{v.shape} against {b.initializers[k].dtype}{b.initializers[k].shape}"
+    return ""
+
+
+@contextlib.contextmanager
+def _world_of_one(torch):
+    """An in-process NCCL group of one rank on cuda:0 and a (1, 1) mesh; no
+    fallback to another backend: if NCCL does not start, the phase fails."""
+    import torch.distributed as dist
+
+    from facedet_tpu_torch.parallel import create_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        check(dist.get_backend() == "nccl", f"the process group runs {dist.get_backend()}")
+        yield create_mesh(1)
+    finally:
+        dist.destroy_process_group()
+
+
+def multidevice_phase(torch, models, mesh):
+    """Returns the launch counts of the mesh, round-robin and multidevice runs."""
+    phase("34 multi-device inference at world 1 over NCCL: get_sliced_prediction(mesh=), "
+          "predict_stream_batched(devices=), predict_stream_multidevice")
+    import numpy as np
+
+    from facedet_tpu_torch import get_sliced_prediction, predict_stream_batched
+    from facedet_tpu_torch.parallel.eval_parallel import predict_stream_multidevice
+
+    print(f"mesh {mesh.mesh_dim_names} of shape {tuple(mesh.mesh.shape)} on {mesh.device_type}; world 1 is the only "
+          f"size one card holds, so no tile is sent anywhere")
+    model = models["cuda"]
+    image = _photo(570)
+    own = {"mesh": _no_launches(), "stream": _no_launches(), "multidevice": _no_launches()}
+    want = get_sliced_prediction(image, model, **SLICED_KW).detections.to_numpy()
+    check(len(want["boxes"]) > 0, "the golden yolo11n found nothing")
+    got = _counted(own["mesh"], lambda: get_sliced_prediction(image, model, mesh=mesh, **SLICED_KW))
+    _compare(got.detections.to_numpy(), want, "get_sliced_prediction(mesh=create_mesh(1)) float32",
+             "mesh vs no mesh, on the card")
+    check(own["mesh"]["gather_chw"] == 1, f"the mesh run launched {own['mesh']}")
+    ms = {"plain": [], "mesh": []}
+    for _ in range(4):  # alternating blocks: the host's speed drifts within a call
+        for label, kw in (("plain", {}), ("mesh", {"mesh": mesh})):
+            times = []
+            for _ in range(6):
+                t0 = time.perf_counter()
+                get_sliced_prediction(image, model, return_image=False, **SLICED_KW, **kw)
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[label].append(round(statistics.median(times[1:]), 3))
+    print("get_sliced_prediction float32 1024x1536, ms per image (median of 5) in four alternating blocks: "
+          + ", ".join(f"{k} {v}" for k, v in ms.items())
+          + f"; mesh / plain of the block medians {statistics.median(ms['mesh']) / statistics.median(ms['plain']):.3f}")
+
+    serving = models["serving"]
+    pool = [_coded_photo(300 + s)[1] for s in range(8)]
+    n = SERVING_BATCH * 2
+
+    def stream(devices):
+        t0 = time.perf_counter()
+        out = list(predict_stream_batched((pool[i % len(pool)] for i in range(n)), serving, batch_size=SERVING_BATCH,
+                                          window=3, raw=True, input_format="dct420s", devices=devices, **SERVING_KW))
+        return n / (time.perf_counter() - t0), out
+
+    two = ["cuda:0", "cuda:0"]
+    stream(None)  # warm-up
+    rates = {"devices=None": [], "devices=[cuda:0, cuda:0]": []}
+    for turn in range(2):
+        rate, single = stream(None)
+        rates["devices=None"].append(rate)
+        rate, multi = _counted(own["stream"], lambda: stream(two)) if turn == 0 else stream(two)
+        rates["devices=[cuda:0, cuda:0]"].append(rate)
+    check(len(multi) == len(single) == 2, f"{len(multi)} and {len(single)} batches")
+    for b, (m, s) in enumerate(zip(multi, single)):
+        check(torch.equal(m.valid, s.valid), f"batch {b}: the round-robin stream keeps other rows")
+        v = s.valid
+        ds = float((m.scores[v] - s.scores[v]).abs().max()) if v.any() else 0.0
+        db = float((m.boxes[v] - s.boxes[v]).abs().max()) if v.any() else 0.0
+        check(ds <= 1e-5 and db <= 1e-3, f"batch {b}: round-robin vs one device scores {ds}, boxes {db}")
+    check(own["stream"]["gather_chw_batched"] > 0, f"the round-robin stream launched {own['stream']}")
+    print(f"predict_stream_batched dct420s batch {SERVING_BATCH} window 3 bfloat16 (two entries keep the window at "
+          f"max(3, 2 + 1)), {n} images per pass: images/s " + ", ".join(f"{k} {[round(r, 2) for r in v]}" for k, v in rates.items())
+          + f"; {int(sum(int(x.valid.sum()) for x in multi))} detections equal in order and value")
+
+    images = [_photo(580 + i) for i in range(8)]
+    outs = _counted(own["multidevice"], lambda: list(predict_stream_multidevice(
+        images, model, devices=two, raw=True, **SLICED_KW)))
+    check(len(outs) == len(images), f"predict_stream_multidevice answered {len(outs)} of {len(images)} images")
+    for i, (img, out) in enumerate(zip(images, outs)):
+        single = get_sliced_prediction(img, model, **SLICED_KW).detections.to_numpy()
+        _compare(out.to_numpy(), single, f"multidevice image {i}", "round-robin vs a single call")
+    check(own["multidevice"]["gather_chw"] == len(images), f"predict_stream_multidevice launched {own['multidevice']}")
+    print(f"launches of the multi-device runs alone: {own}")
+    return {k: sum(c[k] for c in own.values()) for k in _no_launches()}
+
+
+def sharded_train_phase(torch, mesh):
+    phase(f"35 sharded training at world 1: make_sharded_train_step, yolo11n-pose {TRAIN_SIZE}x{TRAIN_SIZE}, batch "
+          f"{TRAIN_BATCH}, float32 (TF32 off), against make_train_step from the same state")
+    import numpy as np
+    from torch.distributed.tensor import DTensor
+
+    from facedet_tpu_torch.engine.detector import _exact_float32
+    from facedet_tpu_torch.models.layers import FlaxBatchNorm2d, GroupBatchNorm2d
+    from facedet_tpu_torch.train.yolo_train import (
+        make_optimizer,
+        make_sharded_staged_train_loop,
+        make_sharded_train_step,
+        make_train_step,
+    )
+
+    batch = [x.cuda() for x in _train_batch(torch, TRAIN_SIZE, TRAIN_BATCH, seed=740)]
+    sgd = lambda ps: torch.optim.SGD(ps, lr=1e-2)  # noqa: E731
+    plain = _golden_trainee(torch, "yolo11n", "cuda")
+    before = {n: p.detach().clone() for n, p in plain.named_parameters()}
+    sharded = _golden_trainee(torch, "yolo11n", "cuda")
+    step, shard_state = make_sharded_train_step(sharded, sgd, mesh)
+    shard_state()
+    check(not any(isinstance(p, DTensor) for p in sharded.parameters()),
+          "at world 1 the plan replicates every parameter; FSDP holds one")
+    runs = {}
+    with _exact_float32(True):
+        for label, run in (("plain", make_train_step(plain, sgd(list(plain.parameters())))), ("sharded", step)):
+            total, parts = run(*batch)
+            model = plain if label == "plain" else sharded
+            runs[label] = ({k: float(v) for k, v in parts.items()},
+                           {n: (p.detach() - before[n]).cpu() for n, p in model.named_parameters()},
+                           {n: b.cpu() for n, b in model.named_buffers() if "running" in n})
+    part_err, upd_err, stat_err, worst = _train_errors({"cpu": runs["plain"], "cuda": runs["sharded"]})
+    print(f"one SGD step, sharded against plain: loss parts {part_err:.3g} relative, parameter updates "
+          f"{upd_err:.3g} of each leaf's largest ({worst}), running statistics {stat_err:.3g}")
+    check(all(np.isfinite(v) for v in runs["sharded"][0].values()), f"sharded loss parts {runs['sharded'][0]}")
+    check(part_err <= 1e-4, f"sharded loss parts {part_err} relative")
+    check(upd_err <= 1e-3, f"sharded parameter updates {upd_err} of a leaf's largest")
+    check(stat_err <= 1e-5, f"sharded BatchNorm statistics {stat_err}")
+
+    adamw = lambda ps: make_optimizer(ps, lr=1e-4)  # noqa: E731
+    plain_step = make_train_step(plain, adamw(list(plain.parameters())))
+    step, shard_state = make_sharded_train_step(_golden_trainee(torch, "yolo11n", "cuda"), adamw, mesh)
+    shard_state()
+    # at world 1 sync_batch_statistics_ leaves the BatchNorms alone (the one
+    # rank holds the global batch); here each all-reduces over the one-rank
+    # dp group anyway, to read what those collectives cost per step
+    bn_model = _golden_trainee(torch, "yolo11n", "cuda")
+    bn_step, shard_state = make_sharded_train_step(bn_model, adamw, mesh)
+    shard_state()
+    bns = [m for m in bn_model.modules() if isinstance(m, FlaxBatchNorm2d)]
+    for m in bns:
+        m.__class__, m.group = GroupBatchNorm2d, mesh.get_group("dp")
+    variants = (("plain", plain_step), ("sharded", step), ("sharded, BatchNorm all-reduce", bn_step))
+    ms, launches = {}, {}
+    with _exact_float32(True):
+        for label, run in variants + tuple((f"{k} again", r) for k, r in variants):
+            ms[label] = statistics.median(_time_steps(torch, lambda: run(*batch), n=10))  # noqa: B023
+        for label, run in variants:
+            launches[label] = _step_profile(torch, lambda: run(*batch), ms[label], f"AdamW {label}")[0]  # noqa: B023
+        loop, shard_state = make_sharded_staged_train_loop(_golden_trainee(torch, "yolo11n", "cuda"), adamw, mesh,
+                                                           steps_per_dispatch=2, flip=True)
+        shard_state()
+        images_u8 = torch.stack([(batch[0] * 255).round().to(torch.uint8)] * 2)
+        mean = float(loop(images_u8, *(torch.stack([x] * 2) for x in batch[1:])))
+    check(np.isfinite(mean), f"the sharded staged loop's mean loss {mean}")
+    print("AdamW step, median of 10 after 3, ms: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+          + f"; kernel launches per step: {launches} ({len(bns)} BatchNorms); make_sharded_staged_train_loop, "
+          f"2 steps with flip: mean loss {mean:.4f}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2963,13 +3223,20 @@ def main() -> int:
         conversion_phase(torch, eval_root)
         family_counts["int8"] = int8_phase(torch, models)
         family_counts["video"] = video_phase(torch, models, eval_root)
+        family_counts["onnx export"] = onnx_export_phase(torch)
+        with _world_of_one(torch) as mesh:
+            family_counts["multi-device"] = multidevice_phase(torch, models, mesh)
+            sharded_train_phase(torch, mesh)
         for family, c in family_counts.items():
             check(c["gather_chw"] > 0, f"the {family} main path did not launch the CHW gather")
             for name, n in c.items():
                 counts[name] += n
         print(f"launches on the evaluation paths (phases 21, 22): {family_counts['evaluation']}; int8 (phase 31): "
-              f"{family_counts['int8']}; video (phase 32): {family_counts['video']}")
+              f"{family_counts['int8']}; video (phase 32): {family_counts['video']}; ONNX export (phase 33): "
+              f"{family_counts['onnx export']}; multi-device (phase 34): {family_counts['multi-device']}")
         check(family_counts["scrfd"]["gather_chw_batched"] > 0, "SCRFD's batch did not launch the batched gather")
+        check(family_counts["multi-device"]["gather_chw_batched"] > 0,
+              "the round-robin stream did not launch the batched gather")
         for k in KERNELS:
             check(counts[k["name"]] > 0, f"{k['name']} was not launched on its main path")
         check("jax" not in sys.modules and "facedet_tpu" not in sys.modules, "jax or facedet_tpu was imported")

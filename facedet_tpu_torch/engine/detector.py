@@ -20,6 +20,7 @@ models/quantize.py too), an ultralytics ``.pt`` (models/convert.py) or
 from __future__ import annotations
 
 import contextlib
+import copy
 import os
 import time
 from typing import Any, Optional
@@ -70,6 +71,13 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _tensors_to(tree, device):
+    """A nested dict with every tensor leaf copied to ``device``."""
+    if isinstance(tree, dict):
+        return {k: _tensors_to(v, device) for k, v in tree.items()}
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
 class DetectionModel:
     """Base detector. Subclasses implement ``load_model`` and
     ``tile_forward_nchw``."""
@@ -107,6 +115,19 @@ class DetectionModel:
 
     def unload_model(self) -> None:
         self.model = None
+
+    def replica(self, device) -> "DetectionModel":
+        """A copy of the detector whose weights lie on ``device``: the
+        ``nn.Module`` deep-copied there, and every tensor of ``variables``
+        (the ONNX route keeps its weights there, engine/onnx_wrapper.py)
+        copied there. Everything else is shared with this detector."""
+        rep = copy.copy(self)
+        rep.device = resolve_device(device)
+        if isinstance(self.model, torch.nn.Module):
+            rep.model = copy.deepcopy(self.model).to(rep.device)
+        if isinstance(getattr(self, "variables", None), dict):
+            rep.variables = _tensors_to(self.variables, rep.device)
+        return rep
 
     def tile_forward_nchw(self, tiles: torch.Tensor, conf_threshold: float) -> Detections:
         """tiles [T,3,S,S] float in [0,1] on ``self.device`` -> per-tile

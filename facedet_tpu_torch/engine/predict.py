@@ -17,11 +17,20 @@ is staged into pinned host memory, uploaded on a copy stream, computed on the
 dispatching thread's stream after an event wait, and its result copied into
 pinned memory behind an event that only the consumer waits on.
 
-The device mesh and serving over several devices are not ported yet; they
-raise ``NotImplementedError``.
+Several devices (parallel/): ``get_sliced_prediction(mesh=)`` runs SPMD,
+one process per device of a ``torch.distributed`` ``DeviceMesh``: every rank
+calls it with the same image, the tile batch is split over the mesh's
+``tile`` ranks and the per-tile detections all-gathered
+(``parallel.sharding.shard_tile_batch_forward``), and the standard pass and
+the merge run replicated, so every rank returns the same result.
+``predict_stream_batched(devices=[...])`` round-robins whole batches over a
+list of devices from one process, with a replica of the detector on each and
+no collective.
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -29,10 +38,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from facedet_tpu_torch.core.boxes import clip_boxes
 from facedet_tpu_torch.core.detections import Detections, concat_detections
-from facedet_tpu_torch.engine.detector import DetectionModel, _exact_float32
+from facedet_tpu_torch.engine.detector import DetectionModel, _exact_float32, resolve_device
 from facedet_tpu_torch.engine.prediction import PredictionResult, detections_to_object_predictions
 from facedet_tpu_torch.ops.color import rgb_to_yuv420, yuv420_to_rgb_chw, yuv420_to_rgb_np
 from facedet_tpu_torch.ops.image import scale_and_translate_chw
@@ -79,10 +89,6 @@ INPUT_FORMATS = ("rgb", "yuv420", "dct420", "dct420s")
 
 # batch_core runs the detector over chunks of c images with c*T tiles at most
 _MAX_FLAT_TILES = 96
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not yet ported to facedet_tpu_torch")
 
 
 # --- the device pipeline ------------------------------------------------------
@@ -179,10 +185,13 @@ def decode_canvas(image, input_format: str, bucket_h: int, bucket_w: int, dtype:
     return yuv420_to_rgb_chw(y, uv, out_dtype=dtype)
 
 
-def _pipeline(detection_model: DetectionModel, plan: dict, image, consts) -> Detections:
+def _pipeline(detection_model: DetectionModel, plan: dict, image, consts, forward=None) -> Detections:
     """The fused pipeline on a decoded-on-device input: one image (no batch
     axis) or a chunk of same-size images (one leading axis). Returns the
-    merged, clipped and compacted detections, still on the device."""
+    merged, clipped and compacted detections, still on the device.
+    ``forward`` replaces the detector's ``tile_forward_nchw`` over the tile
+    batch (the tile-sharded forward of a mesh); the standard pass always
+    runs the detector's own."""
     offsets, tile_valid, true_hw = consts
     sh, sw = plan["slice_height"], plan["slice_width"]
     conf = plan["conf"]
@@ -191,7 +200,7 @@ def _pipeline(detection_model: DetectionModel, plan: dict, image, consts) -> Det
     t = offsets.shape[0]
     # one gather launch for the chunk: [c*T, 3, S, S], image-major
     tiles = gather_tiles_chw(canvas, offsets, sh, sw)
-    det = detection_model.tile_forward_nchw(tiles, conf)
+    det = (forward or detection_model.tile_forward_nchw)(tiles, conf)
     det = det.map(lambda x: x.reshape(*lead, t, *x.shape[1:]))
     parts = [_shift_and_flatten(det, offsets, tile_valid)]
     if plan["standard"]:
@@ -600,6 +609,66 @@ class _StagingSlot:
         return out if isinstance(staged, tuple) else out[0]
 
 
+# --- several devices ---------------------------------------------------------------
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    current = torch.cuda.current_device()
+    return (current if a.index is None else a.index) == (current if b.index is None else b.index)
+
+
+def _replica(detection_model: DetectionModel, device) -> DetectionModel:
+    """The detector on ``device``: itself on its own device, else its
+    ``replica(device)``, built once and cached on the detector (rebuilt when
+    its ``model`` or ``variables`` is replaced), as the JAX engine keeps one
+    copy of the variables per device."""
+    device = resolve_device(device)
+    if _same_device(device, detection_model.device):
+        return detection_model
+    cache = detection_model.__dict__.setdefault("_replicas", {})
+    weights = (detection_model.model, getattr(detection_model, "variables", None))
+    entry = cache.get(str(device))
+    if entry is None or any(a is not b for a, b in zip(entry[0], weights)):
+        rep = detection_model.replica(device)
+        for key in ("_replicas", "_grid_consts", "_sharded_forward"):
+            rep.__dict__.pop(key, None)
+        entry = (weights, rep)
+        cache[str(device)] = entry
+    return entry[1]
+
+
+def _mesh_devices(devices) -> list[torch.device]:
+    """A device list, or a ``DeviceMesh``: the device of each of its ranks,
+    rank r on ``cuda:(r mod the local device count)`` (``cpu`` for a CPU
+    mesh), in rank order."""
+    if isinstance(devices, DeviceMesh):
+        ranks = devices.mesh.flatten().tolist()
+        if devices.device_type == "cuda":
+            return [torch.device("cuda", r % torch.cuda.device_count()) for r in ranks]
+        return [torch.device(devices.device_type)] * len(ranks)
+    return [torch.device(d) for d in devices]
+
+
+def _sharded_forward(detection_model: DetectionModel, mesh):
+    """The detector's tile forward split over the mesh's ``tile`` ranks,
+    cached on the detector per mesh."""
+    from facedet_tpu_torch.parallel.sharding import shard_tile_batch_forward
+
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh (parallel.create_mesh), not {type(mesh).__name__}")
+    if mesh.device_type != detection_model.device.type:
+        raise ValueError(f"a {mesh.device_type} mesh cannot run a detector on {detection_model.device}")
+    entry = detection_model.__dict__.get("_sharded_forward")
+    if entry is None or entry[0] is not mesh:
+        entry = (mesh, shard_tile_batch_forward(detection_model.tile_forward_nchw, mesh))
+        detection_model._sharded_forward = entry
+    return entry[1]
+
+
 # --- single image ----------------------------------------------------------------
 
 
@@ -607,9 +676,10 @@ def _dispatch_sliced(img, detection_model: DetectionModel, opts: dict):
     """Enqueue the sliced pipeline for one image and start the copy of its
     result to the host. Returns (the pending fetch, the plan, durations):
     callers keep several images in flight (``predict_stream``) before they
-    wait on a result."""
-    if opts.get("mesh") is not None:
-        raise _not_ported("the device mesh")
+    wait on a result. With ``opts["mesh"]`` every rank of the mesh must call
+    it with the same image (SPMD); each gets the whole result."""
+    mesh = opts.get("mesh")
+    forward = None if mesh is None else _sharded_forward(detection_model, mesh)
     h, w = _image_hw(img)
     durations: dict[str, float] = {}
     t0 = time.perf_counter()
@@ -631,7 +701,7 @@ def _dispatch_sliced(img, detection_model: DetectionModel, opts: dict):
             staged = _stage_single_host(img, fmt, plan["bucket_h"], plan["bucket_w"])
             dev = tuple(_to_device(a, device) for a in staged) if isinstance(staged, tuple) else _to_device(staged, device)
         consts = _resident_grid_consts(detection_model, plan, device)
-        fetch = _Fetch(_pipeline(detection_model, plan, dev, consts))
+        fetch = _Fetch(_pipeline(detection_model, plan, dev, consts, forward))
     durations["prediction"] = time.perf_counter() - t0
     return fetch, plan, durations
 
@@ -692,7 +762,11 @@ def get_sliced_prediction(
     or float in [0, 1], which is padded on its device), ``(Y, UV)`` planes
     with ``input_format="yuv420"``, or a ``DctImage`` with ``"dct420"`` /
     ``"dct420s"`` (an RGB image is encoded on the fly). ``return_image=False``
-    skips the display image (``PredictionResult.image`` is None)."""
+    skips the display image (``PredictionResult.image`` is None).
+
+    ``mesh``: a ``DeviceMesh`` (parallel/mesh.create_mesh) whose ranks all
+    call this with the same image and options; the tile batch splits over
+    its ``tile`` axis, and every rank returns the same result."""
     if merge_buffer_length is not None:
         merge_capacity = min(merge_capacity, max(int(merge_buffer_length), 64))
     img = _prepare_image(image)
@@ -704,8 +778,9 @@ def get_sliced_prediction(
         postprocess_match_threshold=postprocess_match_threshold,
         postprocess_class_agnostic=postprocess_class_agnostic,
         auto_slice_resolution=auto_slice_resolution, merge_capacity=merge_capacity,
-        input_format=input_format, mesh=mesh, fetch_capacity=fetch_capacity,
+        input_format=input_format, fetch_capacity=fetch_capacity,
     ))
+    opts["mesh"] = mesh
     fetch, plan, durations = _dispatch_sliced(img, detection_model, opts)
     t0 = time.perf_counter()
     merged = fetch.result()
@@ -773,9 +848,9 @@ def predict_stream(
 
 
 def _plan_sliced_batch(imgs: list, detection_model: DetectionModel, opts: dict) -> dict:
-    """Host-side (cheap) batch plan: grid, buckets, options."""
-    if opts.get("mesh") is not None:
-        raise _not_ported("the device mesh")
+    """Host-side (cheap) batch plan: grid, buckets, options. There is no
+    mesh here: ``_stream_opts`` drops it, as the JAX engine's does, so the
+    batch paths run on the detector's own device."""
     h, w = _image_hw(imgs[0])
     if any(_image_hw(im) != (h, w) for im in imgs):
         raise ValueError("batched sliced prediction requires same-size images")
@@ -790,7 +865,7 @@ def _dispatch_staged_batch(plan: dict, staged, detection_model: DetectionModel,
     copy of its result (batch axis leading) to the host. With a staging
     ``slot`` the upload runs on the slot's copy stream from pinned memory."""
     device = detection_model.device
-    with torch.inference_mode(), _exact_float32(plan["canvas_dtype"] == torch.float32):
+    with torch.inference_mode(), _exact_float32(plan["canvas_dtype"] == torch.float32), _on_device(device):
         if slot is not None:
             batch_dev = slot.upload(staged)
         elif isinstance(staged, tuple):
@@ -862,22 +937,30 @@ def predict_stream_batched(
     ``raw=True``). An exception in a worker is raised here, when its batch's
     turn comes.
 
-    ``devices``: serving over several devices is not ported; a single entry
-    must be the model's own device.
+    ``devices`` turns on serving over several devices: a list of devices
+    (``torch.device`` or names), or a ``DeviceMesh``, which stands for the
+    device of each of its ranks (rank r on ``cuda:(r mod the local device
+    count)``, ``cpu`` for a CPU mesh). Consecutive batches round-robin over
+    them from this one process, with no collective: each device runs whole
+    batches on its own replica of the detector (built once and cached), and
+    the window widens to ``len(devices) + 1`` so that none sits idle. A
+    device may appear more than once. Results stay in submission order.
     """
     opts = _stream_opts(sliced_kwargs)
-    device = detection_model.device
+    targets = [detection_model]
     if devices is not None:
-        devices = list(devices.devices.flat) if hasattr(devices, "devices") else list(devices)
-        if len(devices) > 1:
-            raise _not_ported("serving over several devices")
-        if devices and torch.device(devices[0]).type != device.type:
-            raise ValueError(f"devices={devices} does not hold the model, which is on {device}")
-    on_card = device.type == "cuda"
-    copy_stream = torch.cuda.Stream(device) if on_card else None
-    # a slot is reused once `window` later batches were flushed, by when its
-    # batch has been consumed; the slot still waits on its own upload event
-    slots = [_StagingSlot(device, copy_stream) for _ in range(max(window, 1) + 1)] if on_card else None
+        devices = _mesh_devices(devices)
+        if devices:
+            targets = [_replica(detection_model, d) for d in devices]
+            window = max(window, len(devices) + 1)
+    # per device: a copy stream, and a ring of staging slots; a slot is
+    # reused once `window` later batches were flushed, by when its batch has
+    # been consumed; the slot still waits on its own upload event
+    rings = {}
+    for m in targets:
+        if m.device.type == "cuda" and str(m.device) not in rings:
+            stream = torch.cuda.Stream(m.device)
+            rings[str(m.device)] = itertools.cycle([_StagingSlot(m.device, stream) for _ in range(max(window, 1) + 1)])
 
     def finalize(imgs, fut):
         merged = fut.result().result()
@@ -897,12 +980,14 @@ def predict_stream_batched(
 
     def flush(pending):
         nonlocal n_flushed
-        plan = _plan_sliced_batch(pending, detection_model, opts)
-        slot = slots[n_flushed % len(slots)] if slots else None
+        target = targets[n_flushed % len(targets)]
         n_flushed += 1
+        plan = _plan_sliced_batch(pending, target, opts)
+        ring = rings.get(str(target.device))
+        slot = next(ring) if ring else None
         staged_fut = stage_pool.submit(stage, pending, plan, slot)
         fut = dispatch_pool.submit(
-            lambda: _dispatch_staged_batch(plan, staged_fut.result(), detection_model, slot=slot)
+            lambda: _dispatch_staged_batch(plan, staged_fut.result(), target, slot=slot)
         )
         inflight.append((pending, fut))
 
@@ -937,4 +1022,14 @@ def _stream_opts(sliced_kwargs: dict) -> dict:
     unknown = set(sliced_kwargs) - set(known)
     if unknown:
         raise TypeError(f"unknown sliced-prediction options: {sorted(unknown)}")
-    return {k: sliced_kwargs.get(k, default) for k, default in known.items()}
+    opts = {k: sliced_kwargs.get(k, default) for k, default in known.items()}
+    # `mesh` is accepted and dropped, as the JAX engine's `_stream_opts`
+    # drops it: the streams and the batch paths run unsharded
+    opts["mesh"] = None
+    return opts
+
+
+def _on_device(device: torch.device):
+    """``torch.cuda.device(device)`` for a CUDA device (the dispatching
+    thread's kernels and streams then default to it), else nothing."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()

@@ -13,15 +13,29 @@ split per head as ``[heads, 2*key_dim + head_dim]``, as in the NHWC original.
 ``Int8ConvBnAct`` is the int8 serving form of ``ConvBnAct`` (the reference's
 ``ConvBnAct._int8_forward``); models/quantize.py swaps it in, and
 models/from_jax.py builds it where a flax tree holds a ``qkernel``.
+
+Hazard under data parallelism: GSPMD takes a sharded step's train-mode
+BatchNorm statistics over the global batch. ``sync_batch_statistics_(model,
+group)`` makes every ``FlaxBatchNorm2d`` of a model a ``GroupBatchNorm2d``,
+which sums its statistics over the ranks of ``group`` (those that hold other
+images) with the differentiable ``torch.distributed.nn.functional.all_reduce``:
+a plain ``dist.all_reduce`` would cut the gradient through the statistics.
+Left per rank, the statistics, the normalised activations and the running
+buffers would differ from the single-device step on the global batch. The
+sharded train step converts its model; ``FlaxBatchNorm2d`` itself knows
+nothing of process groups.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 __all__ = [
     "FlaxBatchNorm2d",
+    "GroupBatchNorm2d",
+    "sync_batch_statistics_",
     "make_divisible",
     "ConvBnAct",
     "Int8ConvBnAct",
@@ -64,14 +78,48 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return super().forward(x)
         x = x.float()
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp(x.square().mean(dim=(0, 2, 3)) - mean.square(), min=0.0)
+        mean, mean_sq = self._moments(x)
+        var = torch.clamp(mean_sq - mean.square(), min=0.0)
         with torch.no_grad():
             m = self.flax_momentum
             self.running_mean.mul_(m).add_(mean, alpha=1 - m)
             self.running_var.mul_(m).add_(var, alpha=1 - m)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return torch.addcmul(self.bias[:, None, None], x - mean[:, None, None], mul[:, None, None])
+
+    def _moments(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(E[x], E[x^2]) per channel of a float32 NCHW batch."""
+        return x.mean(dim=(0, 2, 3)), x.square().mean(dim=(0, 2, 3))
+
+
+class GroupBatchNorm2d(FlaxBatchNorm2d):
+    """``FlaxBatchNorm2d`` whose train-mode statistics are those of the
+    images of every rank of ``group`` (ranks hold equal local batches): the
+    module docstring's hazard. Made by ``sync_batch_statistics_``, which
+    sets ``group``."""
+
+    def _moments(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        import torch.distributed.nn.functional as dist_nn
+
+        world = dist.get_world_size(self.group)
+        count = x.shape[0] * x.shape[2] * x.shape[3] * world
+        sums = torch.cat([x.sum(dim=(0, 2, 3)), x.square().sum(dim=(0, 2, 3))])
+        sums = dist_nn.all_reduce(sums, group=self.group)
+        return (sums / count).chunk(2)
+
+
+def sync_batch_statistics_(model: nn.Module, group) -> nn.Module:
+    """In place: every ``FlaxBatchNorm2d`` of ``model`` becomes a
+    ``GroupBatchNorm2d`` over ``group`` (its parameters, buffers and hooks
+    stay the same objects). A group of one rank holds the global batch
+    itself, and then nothing changes. Returns ``model``."""
+    if dist.get_world_size(group) == 1:
+        return model
+    for m in model.modules():
+        if isinstance(m, FlaxBatchNorm2d):
+            m.__class__ = GroupBatchNorm2d
+            m.group = group
+    return model
 
 
 class ConvBnAct(nn.Module):

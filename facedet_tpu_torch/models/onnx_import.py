@@ -40,7 +40,7 @@ import torch.nn.functional as F
 
 from facedet_tpu_torch.ops.image import resize_nd
 
-__all__ = ["parse_onnx", "OnnxGraph", "OnnxModule", "import_onnx"]
+__all__ = ["parse_onnx", "parse_onnx_bytes", "OnnxGraph", "OnnxModule", "import_onnx"]
 
 
 # ---------------------------------------------------------------------------
@@ -276,10 +276,14 @@ def _parse_graph(buf: bytes) -> OnnxGraph:
 def parse_onnx(path: str) -> OnnxGraph:
     """Parse a serialized ONNX ModelProto into an :class:`OnnxGraph`."""
     with open(path, "rb") as fh:
-        buf = fh.read()
+        return parse_onnx_bytes(fh.read(), path)
+
+
+def parse_onnx_bytes(buf: bytes, source: str = "<bytes>") -> OnnxGraph:
+    """``parse_onnx`` of a ModelProto held in memory."""
     model = _decode_message(buf)
     if 7 not in model:
-        raise ValueError(f"{path}: no GraphProto (field 7) — not an ONNX model?")
+        raise ValueError(f"{source}: no GraphProto (field 7) — not an ONNX model?")
     return _parse_graph(model[7][-1][1])
 
 

@@ -24,8 +24,34 @@ Parity with the JAX module:
   for each forward, as flax's ``param_dtype`` / ``dtype`` do
   (``YoloV11.set_dtypes`` casts the stored weights, for inference only).
 
-The sharded train loops of the JAX module (``make_sharded_train_step``,
-``make_sharded_staged_train_loop``) wait for ``torch.distributed``.
+The sharded train loops (``make_sharded_train_step``,
+``make_sharded_staged_train_loop``) run SPMD, one process per device of a
+(dp, tile) ``DeviceMesh``: the batch splits over ``dp``, the parameters are
+FSDP-sharded over ``tile`` by FSDP2's ``fully_shard`` on the 2-D mesh (HSDP:
+replicated over ``dp``) following ``parallel.sharding.fsdp_param_shardings``,
+whose replicated (small) parameters FSDP2 leaves alone and whose gradients
+are averaged here; the optimizer state lives on the shards. One sharded step
+equals the single-device step on the global batch. The hazards:
+
+* the train-mode BatchNorm statistics must be those of the global batch,
+  as GSPMD takes them: ``shard_state`` makes the model's BatchNorms
+  ``layers.GroupBatchNorm2d`` over the ``dp`` group
+  (``layers.sync_batch_statistics_``), so the running statistics come out
+  the same on every rank;
+* FSDP2 sums a gradient over every rank of the mesh and divides by a
+  factor. Ranks of one ``tile`` group hold the same images and so the same
+  gradient, and the ``dp`` ranks' local losses are means over equal local
+  batches: the sum is ``tile`` times the sum over ``dp``, and the factor
+  that gives the global batch's gradient is ``dp * tile``, the mesh size.
+  It is set explicitly, with sum-only collectives (gloo has no
+  pre-multiplied sum), so that no version's default decides it; the
+  replicated parameters' gradients are averaged over the whole mesh alike;
+* ``clip_by_global_norm_`` takes the norm of the whole gradient: a sharded
+  (DTensor) gradient contributes its local sum of squares reduced over its
+  shard group, never one rank's shard alone;
+* a DTensor's ``.sum()`` or ``.item()`` either communicates or reads the
+  local value: the step reads only local tensors, and the loss it returns
+  is the ``dp`` mean of the ranks' local means, the same on every rank.
 """
 from __future__ import annotations
 
@@ -35,6 +61,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from facedet_tpu_torch.models.yolov11 import REG_MAX, STRIDES
 
@@ -49,6 +76,8 @@ __all__ = [
     "compute_loss",
     "make_train_step",
     "make_staged_train_loop",
+    "make_sharded_train_step",
+    "make_sharded_staged_train_loop",
 ]
 
 
@@ -325,11 +354,45 @@ class WarmupCosineDecay:
         return self.peak_value * ((1 - self.alpha) * cosine + self.alpha)
 
 
+def _is_dtensor(x) -> bool:
+    return isinstance(x, DTensor)
+
+
+def _sharded_sq_norm(grads: list) -> torch.Tensor:
+    """The squared norm of DTensor gradients: per set of shard dimensions,
+    the local sums of squares summed over those mesh dimensions' groups."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    by_dims: dict[tuple, list] = {}
+    for g in grads:
+        dims = tuple(i for i, p in enumerate(g.placements) if isinstance(p, Shard))
+        by_dims.setdefault((g.device_mesh, dims), []).append(g.to_local())
+    total = None
+    for (mesh, dims), local in by_dims.items():
+        sq = torch.stack(torch._foreach_norm(local)).square().sum()
+        for d in dims:
+            dist.all_reduce(sq, group=mesh.get_group(d))
+        total = sq if total is None else total + sq
+    return total
+
+
 def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
     """``optax.clip_by_global_norm`` in place: below ``max_norm`` the
     gradients stay as they are, else each becomes ``g / norm * max_norm``.
-    Returns the norm (a tensor: no host sync)."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    Returns the norm (a tensor: no host sync). DTensor gradients (FSDP
+    shards) count with their whole tensor: their local sums of squares are
+    reduced over their shard groups before the comparison."""
+    sharded = [g for g in grads if _is_dtensor(g)]
+    if not sharded:
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    else:
+        plain = [g for g in grads if not _is_dtensor(g)]
+        sq = _sharded_sq_norm(sharded)
+        if plain:
+            sq = sq + torch.stack(torch._foreach_norm(plain)).square().sum()
+        norm = torch.sqrt(sq)
+        grads = plain + [g.to_local() for g in sharded]  # views: scaled in place
     below = norm < max_norm
     one = torch.ones_like(norm)
     torch._foreach_div_(grads, torch.where(below, one, norm))
@@ -347,9 +410,16 @@ class ClippedAdamW:
     def __init__(self, params, schedule: Callable[[int], float], weight_decay: float, max_norm: float = 10.0):
         self.params = list(params)
         fused = all(p.is_cuda for p in self.params) or None
+        # FSDP shards (DTensors) and plain tensors go in separate groups of
+        # the same settings: a foreach or fused step takes one kind per list
+        groups = [
+            {"params": ps}
+            for ps in ([p for p in self.params if not _is_dtensor(p)], [p for p in self.params if _is_dtensor(p)])
+            if ps
+        ]
         # lr 1.0 times the schedule's factor is the schedule's value itself
         self.optimizer = torch.optim.AdamW(
-            self.params, lr=1.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay, fused=fused
+            groups, lr=1.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay, fused=fused
         )
         self.scheduler = torch.optim.lr_scheduler.LambdaLR(self.optimizer, schedule)
         self.max_norm = max_norm
@@ -488,3 +558,168 @@ def make_staged_train_loop(
         return loss_sum / steps_per_dispatch
 
     return run
+
+
+# --- sharded over a (dp, tile) mesh -------------------------------------------------
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def _shard_model(model: nn.Module, mesh, fsdp_axis: str) -> list[nn.Parameter]:
+    """FSDP2 over ``fsdp_axis`` with ``fsdp_param_shardings``'s plan: each
+    planned parameter sharded on its dimension, the others left replicated
+    (``ignored_params``). Returns the replicated parameters."""
+    import torch.distributed as dist
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import Shard
+
+    from facedet_tpu_torch.parallel.sharding import fsdp_param_shardings
+
+    if tuple(mesh.mesh_dim_names) != ("dp", fsdp_axis):
+        raise ValueError(f"the sharded step takes a ('dp', {fsdp_axis!r}) mesh, not {mesh.mesh_dim_names}")
+    if mesh.size() != dist.get_world_size():
+        raise ValueError("the mesh must hold every rank of the process group")
+    if model.cfg.compute_dtype != torch.float32:
+        raise ValueError("the sharded step trains float32 configs")
+    model.to(_mesh_device(mesh))
+    plan = fsdp_param_shardings(model, mesh, axis=fsdp_axis)
+    dims = {}
+    replicated = []
+    for name, p in model.named_parameters():
+        placement = plan[name][1]
+        if isinstance(placement, Shard):
+            dims[p] = placement.dim
+        else:
+            replicated.append(p)
+    fully_shard(model, mesh=mesh, shard_placement_fn=lambda p: Shard(dims[p]), ignored_params=set(replicated))
+    # plain sums on the wire, one division by the mesh size after them
+    model.set_force_sum_reduction_for_comms(True)
+    model.set_gradient_divide_factor(float(mesh.size()))
+    return replicated
+
+
+def _average_replicated_grads(params: list[nn.Parameter], world: int) -> None:
+    """Mean of the replicated parameters' gradients over every rank, in one
+    flat all-reduce: FSDP2's divisor for the sharded ones (module docstring)."""
+    import torch.distributed as dist
+
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat)
+    flat /= world
+    offset = 0
+    for p, g in zip(params, grads):
+        p.grad = flat[offset : offset + g.numel()].view_as(g)
+        offset += g.numel()
+
+
+def _sharded_step_fn(model: nn.Module, tx, mesh, fsdp_axis: str):
+    """(local_step, shard_state): ``local_step`` takes this rank's share of a
+    batch (already on the device) and returns the global (loss, parts)."""
+    import torch.distributed as dist
+
+    from facedet_tpu_torch.models import layers
+
+    state: dict = {}
+
+    def shard_state():
+        state["replicated"] = _shard_model(model, mesh, fsdp_axis)
+        # the module docstring's hazards: statistics over the global batch
+        layers.sync_batch_statistics_(model, mesh.get_group("dp"))
+        state["tx"] = tx(list(model.parameters()))
+        _set_bn_dtype(model)
+        return state["tx"]
+
+    def local_step(images, gt_boxes, gt_mask, gt_kpts):
+        if "tx" not in state:
+            raise RuntimeError("call shard_state() before the first step")
+        opt = state["tx"]
+        opt.zero_grad()
+        total, parts = compute_loss(model, images, gt_boxes, gt_mask, gt_kpts)
+        total.backward()
+        _average_replicated_grads(state["replicated"], mesh.size())
+        opt.step()
+        keys = list(parts)
+        vals = torch.stack([total.detach()] + [parts[k].detach() for k in keys])
+        dist.all_reduce(vals, group=mesh.get_group("dp"))
+        vals = vals / mesh.size(0)
+        return vals[0], dict(zip(keys, vals[1:]))
+
+    return local_step, shard_state
+
+
+def make_sharded_train_step(model: nn.Module, tx, mesh, fsdp_axis: str = "tile"):
+    """Train step over a (dp, tile) mesh: the batch sharded over ``dp``,
+    the parameters and the optimizer state FSDP-sharded over ``fsdp_axis``
+    (module docstring). Returns ``(step, shard_state)``.
+
+    ``shard_state()`` shards ``model`` in place and builds the optimizer
+    ``tx(params)`` over the shards (``tx`` is a function of the parameter
+    list, e.g. ``lambda ps: make_optimizer(ps, lr=1e-3)``: an optimizer needs
+    the sharded parameters, which exist only then); it returns the
+    optimizer. ``step(images [B,H,W,3], gt_boxes [B,M,4], gt_mask [B,M],
+    gt_kpts [B,M,K,3] | None) -> (loss, parts)``: every rank passes the same
+    global batch and takes its ``dp`` share; the loss and parts are those of
+    the global batch, on every rank. float32 configs only."""
+    from facedet_tpu_torch.parallel.sharding import batch_sharding, local_shard
+
+    local_step, shard_state = _sharded_step_fn(model, tx, mesh, fsdp_axis)
+    device = _mesh_device(mesh)
+
+    def step(images, gt_boxes, gt_mask, gt_kpts=None):
+        place = batch_sharding(mesh, 4, "dp")
+        share = lambda t: None if t is None else local_shard(torch.as_tensor(t), mesh, place).to(device)  # noqa: E731
+        return local_step(share(images), share(gt_boxes), share(gt_mask), share(gt_kpts))
+
+    return step, shard_state
+
+
+def make_sharded_staged_train_loop(
+    model: nn.Module,
+    tx,
+    mesh,
+    steps_per_dispatch: int = 100,
+    flip: bool = True,
+    fsdp_axis: str = "tile",
+    seed: int = 0,
+):
+    """``make_staged_train_loop`` over a (dp, tile) mesh. The staged arrays'
+    batch axis (dim 1) and the flip draws' batch axis shard over ``dp``
+    (``staged_sharding``); the stage axis replicates, so every rank walks the
+    same round-robin schedule. Returns ``(run, shard_state)`` as
+    ``make_sharded_train_step`` does; ``run(images_u8 [N,B,H,W,3], gt_boxes,
+    gt_mask, gt_kpts, start=0, flips=None [steps, B])`` takes the global
+    arrays on every rank and returns the mean loss of the call over the
+    global batches. Default flips come from a ``torch.Generator`` seeded
+    with ``seed``, drawn for the global batch."""
+    from facedet_tpu_torch.parallel.sharding import local_shard, staged_sharding
+
+    local_step, shard_state = _sharded_step_fn(model, tx, mesh, fsdp_axis)
+    device = _mesh_device(mesh)
+    gen = torch.Generator().manual_seed(seed)
+
+    def run(images_u8, gt_boxes, gt_mask, gt_kpts, start: int = 0, flips: Optional[torch.Tensor] = None):
+        place = staged_sharding(mesh, 5, "dp")
+        share = lambda t: local_shard(torch.as_tensor(t), mesh, place).to(device)  # noqa: E731
+        images_u8, gt_boxes, gt_mask, gt_kpts = (share(t) for t in (images_u8, gt_boxes, gt_mask, gt_kpts))
+        n = images_u8.shape[0]
+        if flip:
+            if flips is None:
+                b = images_u8.shape[1] * mesh.size(0)
+                flips = torch.rand((steps_per_dispatch, b), generator=gen) < 0.5
+            flips = share(torch.as_tensor(flips, dtype=torch.bool))
+        loss_sum = torch.zeros((), device=device)
+        for i in range(steps_per_dispatch):
+            batch = _staged_batch(images_u8, gt_boxes, gt_mask, gt_kpts, (start + i) % n,
+                                  flips[i] if flip else None)
+            total, _ = local_step(*batch)
+            loss_sum = loss_sum + total
+        return loss_sum / steps_per_dispatch
+
+    return run, shard_state

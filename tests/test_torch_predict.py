@@ -116,16 +116,19 @@ def test_get_prediction_tensor_input_stays_a_tensor(models, image):
 
 
 def test_unported_options_raise(models, image):
-    """What is still unported raises: the mesh, several devices. The input
-    formats and video sources are ported and no longer raise
-    NotImplementedError (a missing video file raises as in JAX)."""
+    """Nothing of these options is unported any more: a mesh that is not a
+    ``DeviceMesh`` raises TypeError (the mesh itself is held by
+    tests/test_torch_parallel.py), several devices are served, with the same
+    result as one, the input formats and video sources run (a missing video
+    file raises as in JAX)."""
     from facedet_tpu_torch import predict, predict_stream_batched
 
     _, model = models
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         get_sliced_prediction(image, model, mesh=object())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        list(predict_stream_batched([image], model, devices=["cpu", "cpu"]))
+    two = list(predict_stream_batched([image], model, devices=["cpu", "cpu"], raw=True))
+    one = list(predict_stream_batched([image], model, raw=True))
+    np.testing.assert_array_equal(two[0].boxes.numpy(), one[0].boxes.numpy())
     with pytest.raises(FileNotFoundError):
         predict(detection_model=model, source="clip.avi")
     assert len(get_sliced_prediction(image, model, input_format="yuv420", **SLICED).object_prediction_list) > 0

@@ -263,13 +263,18 @@ def test_predict_stream_batched_worker_errors_reach_the_caller(models, images):
 
 
 def test_unported_serving_options_raise(models, images):
+    """Several devices are served now (tests/test_torch_parallel.py holds
+    them against JAX); the batch path drops a mesh, as the JAX engine's
+    ``_stream_opts`` does; a CUDA device where there is none raises."""
     _, model = models
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        list(predict_stream_batched([images[0]], model, devices=["cpu", "cpu"], **SLICED))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_sliced_prediction_batch([images[0]], model, mesh=object(), **SLICED)
-    with pytest.raises(ValueError, match="does not hold the model"):
-        list(predict_stream_batched([images[0]], model, devices=["cuda"], **SLICED))
+    two = list(predict_stream_batched([images[0]], model, devices=["cpu", "cpu"], raw=True, **SLICED))
+    assert len(two) == 1 and two[0].boxes.shape[0] == 1
+    dropped = get_sliced_prediction_batch([images[0]], model, mesh=object(), raw=True, **SLICED)
+    plain = get_sliced_prediction_batch([images[0]], model, raw=True, **SLICED)
+    np.testing.assert_array_equal(dropped.boxes.numpy(), plain.boxes.numpy())
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            list(predict_stream_batched([images[0]], model, devices=["cuda"], **SLICED))
     # one device, the model's own, is served
     out = list(predict_stream_batched([images[0]], model, devices=["cpu"], raw=True, **SLICED))
     assert len(out) == 1 and out[0].boxes.shape[0] == 1
