@@ -189,7 +189,38 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    launches and device busy per step; two steps of
    make_sharded_staged_train_loop with flip, a finite loss; the process
    group is destroyed after it;
-36. report: the wall seconds of every phase, a ``kernels`` JSON line, the nvidia-smi line, and last the
+36. goldens recovery (host): a synthetic reference tree of 6 photos of
+   1024x1536 with 12 faces each (utils/synth.synthetic_reference_tree: the
+   reference's run-artifact layout, crops named by confidence, detail
+   images with the landmark dots), tools/reference_goldens.extract_goldens
+   and tools/golden_keypoints.recover_all on it: every face at IoU >= 0.9
+   with its exact confidence, every landmark within 3 px of its dot;
+37. golden fine-tune, with the launch counts set to 0 first:
+   tools/golden_finetune.main on the tree for yolo11n-pose (640x640, batch
+   8, float32, staged, 200 steps; the mean loss must fall across
+   dispatches), scrfd_2.5g, rtdetr-l with the golden yolo11n as teacher and
+   a 2-fold CV: ms per step, the parity report per split, each checkpoint
+   loaded back (yolo: the same parity), launches and device busy per step
+   from the yolo run's last dispatch under the profiler (its ms per step
+   from the dispatches before), the CHW gather launches of parity_on_split;
+38. golden evaluation with the committed yolo11n: the parts of
+   golden_official_eval (build_widerface_layout, the official evaluator in
+   both modes), golden_dual_eval (run_dual, baseline and SAHI) and
+   golden_conf_sweep (collect_detections, score_split) on a float32
+   detector (TF32 off) and 2 images, card against CPU (APs within 0.005,
+   the sweep's rows equal in counts), then the three tools as a user runs
+   them (bfloat16) on the 6 images (the dual evaluator's four
+   modes with the x2 enhancer and the 'quick' grid): seconds per tool,
+   images per second, the CHW launches in a window of their own;
+39. SR golden loop and UI: tools/sr_golden_train.main at x2plus full width
+   (HR 128, batch 16: 100 L1 steps, then 20 GAN steps with the perceptual
+   term; the L1 loss must fall), its held-out PSNR against bicubic and IQA
+   table; tools/sr_cascade_eval in both arms from that checkpoint;
+   eval/iqa_train.main fitting NIQE on the tree's photos;
+   apps/streamlit_app.process_single_image with the golden detector (SAHI,
+   its CHW launches counted); utils/viz_mpl.FaceVisualizer (drawing only
+   where matplotlib imports);
+40. report: the wall seconds of every phase, a ``kernels`` JSON line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 It imports nothing of jax or facedet_tpu and needs the checkout: run alone
@@ -198,6 +229,7 @@ it fails.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import re
@@ -3168,6 +3200,349 @@ def sharded_train_phase(torch, mesh):
           f"2 steps with flip: mean loss {mean:.4f}")
 
 
+# phases 36-39: the golden research loop on a synthetic reference tree
+GOLDEN_IMAGES, GOLDEN_FACES = 6, 12  # photos of CANVAS, faces of 50 to 140 px each
+GF_STEPS, GF_STAGED, GF_SPD = 200, 16, 50  # yolo11n-pose, 640x640, batch 8, float32
+SR_L1_STEPS, SR_GAN_STEPS, SR_SPD, SR_CROPS = 100, 20, 20, 16
+
+
+def goldens_phase(root):
+    """Builds the tree; returns its root and the recovered goldens and
+    keypoints files."""
+    phase(f"36 goldens recovery (host): reference_goldens and golden_keypoints on a synthetic reference tree of "
+          f"{GOLDEN_IMAGES} photos of {CANVAS[0]}x{CANVAS[1]}, {GOLDEN_FACES} faces each")
+    import numpy as np
+
+    from facedet_tpu_torch.tools.golden_keypoints import recover_all
+    from facedet_tpu_torch.tools.reference_goldens import extract_goldens
+    from facedet_tpu_torch.utils.synth import synthetic_reference_tree
+
+    tree = os.path.join(root, "reference")
+    t0 = time.perf_counter()
+    truth = synthetic_reference_tree(tree, n_images=GOLDEN_IMAGES, hw=CANVAS, n_faces=GOLDEN_FACES,
+                                     size=(50, 140), seed=36)
+    t1 = time.perf_counter()
+    goldens = extract_goldens(tree)
+    t2 = time.perf_counter()
+    check(sorted(goldens["images"]) == sorted(truth), f"recovered images {sorted(goldens['images'])}")
+    worst_iou = 1.0
+    for key, rec in goldens["images"].items():
+        faces = {f["face_index"]: f for f in rec["faces"]}
+        check(sorted(faces) == list(range(GOLDEN_FACES)), f"{key}: faces {sorted(faces)} recovered")
+        for i, box in enumerate(truth[key]["boxes"]):
+            iou = float(_iou(np.array([faces[i]["bbox"]], float), box[None].astype(float))[0, 0])
+            worst_iou = min(worst_iou, iou)
+            check(iou >= 0.9 and faces[i]["conf_lo"] == faces[i]["conf_hi"] == truth[key]["conf"][i],
+                  f"{key} face {i}: IoU {iou}, conf {faces[i]['conf_hi']} against {truth[key]['conf'][i]}")
+    kps = recover_all(goldens, tree)
+    worst_px = 0.0
+    for key, rec in kps["images"].items():
+        for f in rec["faces"]:
+            k = np.asarray(f["kpts"])
+            check((k[:, 2] == 1).all(), f"{key} face {f['face_index']}: a landmark not found")
+            worst_px = max(worst_px, float(np.abs(k[:, :2] - truth[key]["kpts"][f["face_index"]]).max()))
+    check(worst_px <= 3.0, f"a recovered landmark lies {worst_px} px from its dot")
+    ref = {"root": tree, "goldens": os.path.join(tree, "goldens.json"), "keypoints": os.path.join(tree, "keypoints.json")}
+    for path, data in ((ref["goldens"], goldens), (ref["keypoints"], kps)):
+        with open(path, "w") as f:
+            json.dump(data, f)
+    n = GOLDEN_IMAGES * GOLDEN_FACES
+    print(f"tree written in {t1 - t0:.2f} s; extract_goldens {t2 - t1:.2f} s: {n} of {n} faces at IoU >= "
+          f"{worst_iou:.3f} with their confidences; recover_all: {kps['n_keypoints_recovered']} landmarks, "
+          f"the farthest {worst_px:.2f} px from its dot")
+    return ref
+
+
+def _ms_per_step(history) -> float:
+    """Wall ms per step between the first and the last logged dispatch (the
+    staging and the first dispatch's warm-up left out)."""
+    (s0, _l0, t0), (s1, _l1, t1) = history[0], history[-1]
+    return 1e3 * (t1 - t0) / (s1 - s0)
+
+
+def _split_line(report) -> str:
+    fmt = lambda v: "n/a" if v is None else f"{v:.3f}"  # noqa: E731
+    return ", ".join(f"{s} recall {fmt(report[s]['recall'])} precision {fmt(report[s]['precision'])}"
+                     for s in ("train_split", "held_out_split"))
+
+
+@contextlib.contextmanager
+def _profile_dispatch(torch, module, name, which):
+    """While open, dispatch ``which`` (from 0) of the staged loops that
+    ``module.name`` makes runs under the profiler (device activity only);
+    yields a dict that then holds that dispatch's kernel ``launches`` and
+    device-busy ``device_ms``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    real = getattr(module, name)
+    seen = {}
+    count = itertools.count()
+
+    def factory(*a, **k):
+        run = real(*a, **k)
+
+        def wrapped(*args, **kw):
+            if next(count) != which:
+                return run(*args, **kw)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = run(*args, **kw)
+                torch.cuda.synchronize()
+            kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+            seen["launches"] = sum(e.count for e in kernels)
+            seen["device_ms"] = sum(e.self_device_time_total for e in kernels) / 1e3
+            return out
+
+        return wrapped
+
+    setattr(module, name, factory)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
+    check(seen.get("device_ms", 0) > 0, f"the profiler saw no device time in dispatch {which} of {name}")
+
+
+def golden_finetune_phase(torch, ref, root):
+    """Returns the gather launches of the four runs (parity_on_split's)."""
+    phase(f"37 golden fine-tune: golden_finetune.main, yolo11n-pose {TRAIN_SIZE}x{TRAIN_SIZE} batch {TRAIN_BATCH} "
+          f"float32 staged ({GF_STEPS} steps), scrfd_2.5g, rtdetr-l with the golden teacher, 2-fold CV "
+          f"(launch counts from 0)")
+    import numpy as np
+
+    from facedet_tpu_torch.engine.detector import YoloV11PoseDetectionModel
+    from facedet_tpu_torch.engine.rtdetr_wrapper import RtDetrDetectionModel
+    from facedet_tpu_torch.engine.scrfd_wrapper import ScrfdDetectionModel
+    from facedet_tpu_torch.tools import golden_finetune as gf
+    from facedet_tpu_torch.train import yolo_train
+
+    data = ["--goldens", ref["goldens"], "--ref-dir", ref["root"], "--keypoints", ref["keypoints"], "--device", "cuda",
+            "--batch", str(TRAIN_BATCH), "--size", str(TRAIN_SIZE)]
+    runs = {
+        "yolo": ["--steps", str(GF_STEPS), "--staged", str(GF_STAGED), "--steps-per-dispatch", str(GF_SPD)],
+        "scrfd": ["--model", "scrfd", "--variant", "scrfd_2.5g", "--steps", "40", "--staged", "8",
+                  "--steps-per-dispatch", "20"],
+        "rtdetr": ["--model", "rtdetr", "--variant", "rtdetr-l", "--teacher", CKPT, "--steps", "30", "--staged", "8",
+                   "--steps-per-dispatch", "15"],
+        "cv": ["--cv", "2", "--steps", "20", "--staged", "4", "--steps-per-dispatch", "10"],
+    }
+    launches = _no_launches()
+    reports = {}
+    for label, argv in runs.items():
+        t0 = time.perf_counter()
+        run = lambda: gf.main(argv + data + ["--out-dir", os.path.join(root, f"gf_{label}")])  # noqa: B023, E731
+        if label == "yolo":
+            with _profile_dispatch(torch, yolo_train, "make_staged_train_loop", GF_STEPS // GF_SPD - 1) as profiled:
+                reports[label] = _counted(launches, run)
+        else:
+            reports[label] = _counted(launches, run)
+        print(f"{label}: golden_finetune.main in {time.perf_counter() - t0:.1f} s")
+
+    rep = reports["yolo"]
+    losses = [h[1] for h in rep["loss_history"]]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"yolo mean loss per dispatch {losses}")
+    # the checkpoint through the .npz route gives the same parity
+    det = YoloV11PoseDetectionModel(model_path=rep["checkpoint"], scale="n", dtype="float32",
+                                    confidence_threshold=0.25, image_size=TRAIN_SIZE, device="cuda")
+    records = gf.load_golden_dataset(ref["goldens"], ref["root"], ref["keypoints"])
+    train_recs, _held = gf.split_records(records)
+    with open(ref["goldens"]) as f:
+        goldens = json.load(f)
+    again = gf.parity_on_split(det, goldens, train_recs, ref["root"], 0.35, 0.5)
+    check((again["recall"], again["precision"]) == (rep["train_split"]["recall"], rep["train_split"]["precision"]),
+          f"the loaded checkpoint: {again['recall']}, {again['precision']} against {rep['train_split']}")
+    # ms per step over the unprofiled dispatches 2-3, launches and device
+    # busy from the profiled last dispatch, all of this one run
+    ms = _ms_per_step(rep["loss_history"][:-1])
+    per_step = {k: v / GF_SPD for k, v in profiled.items()}
+    print(f"yolo11n-pose: mean loss per dispatch of {GF_SPD} steps {[round(v, 4) for v in losses]}; {ms:.3f} ms/step "
+          f"({TRAIN_BATCH * 1e3 / ms:.1f} images/s) over dispatches 2-{len(losses) - 1}; last dispatch under the "
+          f"profiler: {per_step['launches']:.0f} kernel launches and device busy {per_step['device_ms']:.3f} ms per "
+          f"step ({100 * per_step['device_ms'] / ms:.1f}% of the ms/step); {_split_line(rep)}")
+    for label, det_cls, kw in (("scrfd", ScrfdDetectionModel, dict(variant="scrfd_2.5g")),
+                               ("rtdetr", RtDetrDetectionModel, dict(variant="rtdetr-l"))):
+        r = reports[label]
+        losses = [h[1] for h in r["loss_history"]]
+        check(all(np.isfinite(losses)), f"{label} losses {losses}")
+        det_cls(model_path=r["checkpoint"], dtype="float32", image_size=TRAIN_SIZE, device="cuda", **kw)
+        print(f"{label}: mean loss per dispatch {[round(v, 4) for v in losses]}, {_ms_per_step(r['loss_history']):.3f} "
+              f"ms/step; checkpoint loads; {_split_line(r)}")
+    cv = reports["cv"]
+    check(len(cv["folds"]) == 2 and cv["cv_chosen_steps"] in cv["eval_points"], f"CV report {cv['aggregate']}")
+    YoloV11PoseDetectionModel(model_path=cv["final_checkpoint"], scale="n", dtype="float32", device="cuda")
+    print(f"2-fold CV: eval points {cv['eval_points']}, chosen {cv['cv_chosen_steps']}, aggregate "
+          f"{json.dumps(cv['aggregate'])}; the final checkpoint loads")
+    check(launches["gather_chw"] > 0, "parity_on_split did not launch the CHW gather")
+    print(f"launches of the four runs (parity_on_split's sliced passes): {launches}")
+    return launches
+
+
+def golden_eval_phase(torch, ref, root):
+    """Returns the gather launches of the bfloat16 runs."""
+    phase("38 golden evaluation with the committed yolo11n: golden_official_eval (standard, sahi), golden_dual_eval "
+          "(four modes, --tune), golden_conf_sweep; float32 card against CPU on 2 images, then bfloat16 "
+          "(launch counts from 0)")
+    import types
+
+    import numpy as np
+
+    from facedet_tpu_torch.engine.detector import YoloV11PoseDetectionModel
+    from facedet_tpu_torch.eval.widerface_official import OfficialWiderFaceEvaluator
+    from facedet_tpu_torch.tools import golden_conf_sweep as gcs
+    from facedet_tpu_torch.tools import golden_dual_eval as gde
+    from facedet_tpu_torch.tools import golden_official_eval as goe
+
+    with open(ref["goldens"]) as f:
+        goldens = json.load(f)
+    two = {"images": {k: goldens["images"][k] for k in sorted(goldens["images"])[:2]}}
+    names = sorted(two["images"])
+    out = lambda *p: os.path.join(root, "golden_eval", *p)  # noqa: E731
+
+    def fidelity(side):
+        """The tools' parts on a float32 detector (the tools build the
+        bfloat16 one): the official protocol's APs in both modes, the dual
+        evaluator's baseline and SAHI modes, the sweep's rows' counts."""
+        det = YoloV11PoseDetectionModel(model_path=CKPT, scale="n", dtype="float32", bn_dtype="float32",
+                                        confidence_threshold=0.25, image_size=640, device=side)
+        images_path, gt_txt = goe.build_widerface_layout(two, ref["root"], out(side, "official"))
+        official = {}
+        for mode in ("standard", "sahi"):
+            official[mode] = OfficialWiderFaceEvaluator(
+                det, images_path, gt_txt=gt_txt, use_sahi=(mode == "sahi"),
+                sahi_config={"slice_height": 640, "slice_width": 640, "overlap_ratio": 0.25},
+                output_dir=out(side, "official", mode)).run()["aps"]
+        dual_args = types.SimpleNamespace(ref_dir=ref["root"], work_dir=out(side, "dual"), min_conf=0.2,
+                                          modes="baseline,sahi", weights=CKPT, commit=False)
+        dual = gde.run_dual(dual_args, det, two)["modes"]
+        dets = gcs.collect_detections(det, names, two, ref["root"])
+        rows = [gcs.score_split(dets, names, two, c) for c in np.arange(0.20, 0.801, 0.025)]
+        return official, dual, [(r["matched"], r["golden_faces"], r["predicted"]) for r in rows]
+
+    (coff, cdual, crows), (goff, gdual, grows) = fidelity("cpu"), fidelity("cuda")
+    ap_err = max(abs(goff[m][k] - v) for m in coff for k, v in coff[m].items())
+    for mode in ("baseline", "sahi"):
+        for key in ("subcategory_results", "difficulty_results"):
+            for a, b in zip(gdual[mode][key], cdual[mode][key]):
+                ap_err = max(ap_err, abs(a["ap"] - b["ap"]))
+    check(ap_err <= 0.005, f"golden evaluation APs card vs CPU differ by {ap_err}")
+    check(grows == crows, "the conf sweep's rows differ card vs CPU")
+    print(f"float32, 2 images, card vs CPU: official and dual APs within {ap_err:.3g}; the sweep's "
+          f"{len(grows)} rows equal in counts; official sahi AP {goff['sahi']['all']:.4f}")
+
+    launches = _no_launches()
+    data = ["--goldens", ref["goldens"], "--ref-dir", ref["root"], "--device", "cuda"]
+    seconds = {}
+
+    def timed(label, run):
+        t0 = time.perf_counter()
+        res = _counted(launches, run)
+        seconds[label] = time.perf_counter() - t0
+        return res
+
+    off = timed("golden_official_eval", lambda: goe.main(data + ["--work-dir", out("official")]))
+    dual = timed("golden_dual_eval --tune", lambda: gde.main(data + ["--tune", "--work-dir", out("dual")]))
+    sweep = timed("golden_conf_sweep", lambda: gcs.main(data + ["--weights", CKPT, "--out", out("sweep.json")]))
+    for mode, r in off["modes"].items():
+        check(0.0 <= r["aps"]["all"] <= 1.0, f"official {mode}: AP {r['aps']}")
+        print(f"official {mode}: AP {r['aps']['all']:.4f}, {r['images_per_second']:.2f} images/s")
+    check(off["modes"]["sahi"]["aps"]["all"] > 0.5, "the golden yolo11n matched few synthetic faces through SAHI")
+    for mode, res in dual["dual"]["modes"].items():
+        rows = {r["category"]: round(r["ap"], 4) for r in res["difficulty_results"]}
+        print(f"dual {mode}: easy/medium/hard APs {rows}")
+    errors = [r["errors"] for r in dual["tuning"]["results"]]
+    check(len(dual["dual"]["modes"]) == 4 and errors == [0] * 4, f"dual modes {list(dual['dual']['modes'])}, errors {errors}")
+    check(sweep["chosen"] is not None, "the sweep chose no operating point")
+    print(f"tuning grid 'quick': errors {errors}, best {dual['tuning']['best']['slice_size']}; sweep chosen conf "
+          f"{sweep['chosen']['conf']}: held-out {sweep['chosen']['held_out']}")
+    n = GOLDEN_IMAGES
+    print("bfloat16 seconds per tool: " + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items())
+          + f"; images per second over {n} images: official (2 modes) {2 * n / seconds['golden_official_eval']:.2f}, "
+          f"dual (4 modes + 4 grid configurations) {8 * n / seconds['golden_dual_eval --tune']:.2f}, sweep "
+          f"{n / seconds['golden_conf_sweep']:.2f}")
+    check(launches["gather_chw"] > 0, "the golden evaluation did not launch the CHW gather")
+    print(f"launches of the bfloat16 runs: {launches}")
+    return launches
+
+
+def sr_golden_phase(torch, ref, root):
+    """Returns the gather launches of process_single_image."""
+    phase(f"39 SR golden loop and UI: sr_golden_train x2plus ({SR_HR} HR, batch {SR_BATCH}) {SR_L1_STEPS} L1 + "
+          f"{SR_GAN_STEPS} GAN steps, sr_cascade_eval both arms, iqa_train.main, process_single_image "
+          f"(launch counts from 0), FaceVisualizer")
+    import importlib.util
+
+    import numpy as np
+
+    from facedet_tpu_torch.apps.streamlit_app import process_single_image
+    from facedet_tpu_torch.engine.detector import YoloV11PoseDetectionModel
+    from facedet_tpu_torch.eval import iqa_train
+    from facedet_tpu_torch.tools import sr_cascade_eval as sce
+    from facedet_tpu_torch.tools import sr_golden_train as sgt
+    from facedet_tpu_torch.utils.viz import load_image
+    from facedet_tpu_torch.utils.viz_mpl import FaceVisualizer
+
+    out = lambda *p: os.path.join(root, "sr_golden", *p)  # noqa: E731
+    data = ["--goldens", ref["goldens"], "--ref-dir", ref["root"], "--device", "cuda"]
+    t0 = time.perf_counter()
+    rep = sgt.main(data + ["--steps", str(SR_L1_STEPS), "--staged", str(SR_SPD), "--batch", str(SR_BATCH),
+                           "--hr-size", str(SR_HR), "--patches", "512", "--gan-steps", str(SR_GAN_STEPS),
+                           "--gan-percep-weight", "0.1", "--max-crops", str(SR_CROPS), "--out", out("x2.npz"),
+                           "--report", out("sr_report.json")])
+    losses = [h[1] for h in rep["loss_history"]]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"SR L1 loss per call {losses}")
+    check(all(np.isfinite(v) for v in rep["gan"]["final"].values()), f"GAN metrics {rep['gan']['final']}")
+    fid = rep["fidelity_holdout"]
+    check(all(np.isfinite(r["psnr_restored"]) for r in fid), f"fidelity {fid}")
+    ov = rep["iqa_face_crops"]["overall"]
+    print(f"sr_golden_train.main in {time.perf_counter() - t0:.1f} s: L1 loss per call {[round(v, 4) for v in losses]} "
+          f"({_ms_per_step(rep['loss_history']):.3f} ms/step), GAN {rep['gan']['final']} in {rep['gan']['seconds']} s; "
+          f"held-out PSNR restored / bicubic " + ", ".join(f"{r['psnr_restored']:.2f}/{r['psnr_bicubic']:.2f}" for r in fid)
+          + f" dB; IQA on {ov['n']} crops: NIQE {ov['niqe_orig']:.3f}->{ov['niqe_enhanced']:.3f}, BRISQUE "
+          f"{ov['brisque_orig']:.3f}->{ov['brisque_enhanced']:.3f}, TOPIQ {ov['topiq_face_orig']:.3f}->"
+          f"{ov['topiq_face_enhanced']:.3f}")
+    for arm in ("cascade", "x2resize"):
+        t0 = time.perf_counter()
+        casc = sce.main(data + ["--arm", arm, "--weights", out("x2.npz"), "--max-crops", str(SR_CROPS),
+                                "--report", out(f"{arm}.json")])
+        rows = casc["fidelity_holdout"]
+        check(len(rows) == 3 and all(np.isfinite(r["psnr_restored"]) for r in rows), f"{arm}: {rows}")
+        print(f"sr_cascade_eval --arm {arm} in {time.perf_counter() - t0:.1f} s: PSNR restored / bicubic "
+              + ", ".join(f"{r['psnr_restored']:.2f}/{r['psnr_bicubic']:.2f}" for r in rows)
+              + f" dB; IQA overall {casc['iqa_face_crops']['overall']}")
+    t0 = time.perf_counter()
+    fit = iqa_train.main(["--out-dir", out("iqa"), "--ref-dir", ref["root"], "--goldens", ref["goldens"]])
+    check(fit["niqe_photos"] == GOLDEN_IMAGES, f"iqa_train fitted NIQE on {fit['niqe_photos']} photos")
+    print(f"iqa_train.main in {time.perf_counter() - t0:.1f} s: NIQE on the {fit['niqe_photos']} golden photos, "
+          f"BRISQUE regressor rmse {fit['rmse']:.2f} over {fit['n']}")
+
+    det = YoloV11PoseDetectionModel(model_path=CKPT, scale="n", image_size=SLICE, device="cuda")
+    names = sorted(json.load(open(ref["goldens"]))["images"])
+    img = load_image(os.path.join(ref["root"], names[0], "temp_sahi_input.jpg"))
+    launches = _no_launches()
+    process_single_image(img, det, enable_sahi=True, confidence=0.25, with_iqa=False)  # cuDNN plans
+    t0 = time.perf_counter()
+    res = _counted(launches, lambda: process_single_image(img, det, enable_sahi=True, confidence=0.25,
+                                                          output_dir=out("ui")))
+    check(res["num_faces"] > 0 and len(res["crop_paths"]) == res["num_faces"] and res["annotated"].shape == img.shape,
+          f"process_single_image: {res['num_faces']} faces, {len(res['crop_paths'])} crops")
+    print(f"process_single_image (SAHI, bfloat16, IQA on): {res['num_faces']} faces in "
+          f"{time.perf_counter() - t0:.2f} s (detection {res['timings']['detection'] * 1e3:.1f} ms); launches {launches}")
+    vis = FaceVisualizer()
+    preds = res["result"].object_prediction_list
+    saved = vis.save_face_crops(img, preds, out("mpl_crops"))
+    check(len(saved) == len(preds), f"FaceVisualizer saved {len(saved)} of {len(preds)} crops")
+    if importlib.util.find_spec("matplotlib") is None:
+        print("matplotlib is not installed on this machine: FaceVisualizer.draw_detections not driven "
+              "(save_face_crops and create_detection_summary were)")
+    else:
+        drawn = vis.draw_detections(img, preds)
+        check(drawn.shape[2] == 3 and drawn.shape[0] > 0, f"FaceVisualizer drew {drawn.shape}")
+        print(f"FaceVisualizer.draw_detections: {drawn.shape}; {len(saved)} crops saved")
+    vis.create_detection_summary({"num_faces": len(preds), "detections": []})
+    check(launches["gather_chw"] > 0, "process_single_image did not launch the CHW gather")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3227,13 +3602,19 @@ def main() -> int:
         with _world_of_one(torch) as mesh:
             family_counts["multi-device"] = multidevice_phase(torch, models, mesh)
             sharded_train_phase(torch, mesh)
+        ref = goldens_phase(eval_root)
+        family_counts["golden fine-tune"] = golden_finetune_phase(torch, ref, eval_root)
+        family_counts["golden evaluation"] = golden_eval_phase(torch, ref, eval_root)
+        family_counts["golden SR and UI"] = sr_golden_phase(torch, ref, eval_root)
         for family, c in family_counts.items():
             check(c["gather_chw"] > 0, f"the {family} main path did not launch the CHW gather")
             for name, n in c.items():
                 counts[name] += n
         print(f"launches on the evaluation paths (phases 21, 22): {family_counts['evaluation']}; int8 (phase 31): "
               f"{family_counts['int8']}; video (phase 32): {family_counts['video']}; ONNX export (phase 33): "
-              f"{family_counts['onnx export']}; multi-device (phase 34): {family_counts['multi-device']}")
+              f"{family_counts['onnx export']}; multi-device (phase 34): {family_counts['multi-device']}; golden "
+              f"fine-tune (phase 37): {family_counts['golden fine-tune']}; golden evaluation (phase 38): "
+              f"{family_counts['golden evaluation']}; golden SR and UI (phase 39): {family_counts['golden SR and UI']}")
         check(family_counts["scrfd"]["gather_chw_batched"] > 0, "SCRFD's batch did not launch the batched gather")
         check(family_counts["multi-device"]["gather_chw_batched"] > 0,
               "the round-robin stream did not launch the batched gather")

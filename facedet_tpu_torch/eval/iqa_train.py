@@ -20,14 +20,21 @@ Reference: pipeline_v4_yolo/1_Inference.py:121-183 (pyiqa NIQE+BRISQUE),
 BASELINE.md IQA table.
 
 Counterpart of facedet_tpu/eval/iqa_train.py: the distortion bank, the
-regressor and ``svr_predict`` are a numpy copy. ``real_photo_corpus`` and
-``main`` regenerate the committed artifacts from the golden photographs
-through the JAX package's tools/sr_golden_train.py, which is not ported yet:
-they raise.
+regressor and ``svr_predict`` are a numpy copy. ``main`` writes the two
+artifacts into ``out_dir`` (default runs/iqa_train/), never into the JAX
+package's assets: ``python -m facedet_tpu_torch.eval.iqa_train``.
+``real_photo_corpus`` reads the golden photographs through
+tools/sr_golden_train.py; where the goldens name no photo that exists (no
+reference checkout) it returns [] and ``main`` fits the synthetic corpus, as
+the JAX module does. Unlike the JAX module, which returns [] on any error,
+a failing loader raises.
 """
 from __future__ import annotations
 
+import argparse
 import io
+import json
+import os
 
 import numpy as np
 
@@ -122,14 +129,58 @@ def svr_predict(model: dict, feats: np.ndarray) -> np.ndarray:
     return np.exp(-float(model["gamma"]) * d2) @ model["alpha"]
 
 
-def real_photo_corpus(max_images: int = 20) -> list[np.ndarray]:
-    """The golden WIDERFACE scenes, the pristine corpus for NIQE: they load
-    through tools/sr_golden_train.py, which is not ported yet."""
-    raise NotImplementedError("real_photo_corpus is not yet ported (it needs tools/sr_golden_train.py)")
+def real_photo_corpus(max_images: int = 20, ref_dir: str | None = None,
+                      goldens: str | None = None) -> list[np.ndarray]:
+    """The recovered golden WIDERFACE scenes (real photographs) — the
+    pristine corpus for NIQE. ``ref_dir`` / ``goldens`` default to
+    tools/golden_finetune's. Returns [] when no golden source photo exists
+    under ``ref_dir``; any other failure raises."""
+    from facedet_tpu_torch.tools import golden_finetune
+    from facedet_tpu_torch.tools.sr_golden_train import load_unique_golden_images
+
+    ref_dir = ref_dir or golden_finetune.REF_DIR
+    goldens = goldens or golden_finetune.GOLDENS_PATH
+    with open(goldens) as f:
+        names = json.load(f)["images"]
+    if not any(os.path.exists(os.path.join(ref_dir, n, "temp_sahi_input.jpg")) for n in names):
+        return []
+    return [r["image"] for r in load_unique_golden_images(ref_dir=ref_dir, goldens=goldens)[:max_images]]
 
 
-def main() -> dict:
-    """Regenerates ``niqe_pristine.npz`` and ``brisque_svr.npz`` from the
-    golden photographs: not yet ported (the JAX package's
-    ``python -m facedet_tpu.eval.iqa_train`` writes them)."""
-    raise NotImplementedError("regenerating the IQA artifacts is not yet ported")
+def main(argv=None) -> dict:
+    """Fit ``niqe_pristine.npz`` (the golden photos' sharp patches, or the
+    synthetic corpus when there is none) and ``brisque_svr.npz`` into
+    ``--out-dir``."""
+    from facedet_tpu_torch.eval.iqa import fit_niqe_model
+
+    ap = argparse.ArgumentParser(description="Fit the NIQE pristine model and the BRISQUE regressor")
+    ap.add_argument("--out-dir", default=os.path.join("runs", "iqa_train"))
+    ap.add_argument("--ref-dir", default=None, help="reference checkout (default: tools/golden_finetune's)")
+    ap.add_argument("--goldens", default=None, help="goldens JSON (default: the committed one)")
+    args = ap.parse_args(argv)
+    os.makedirs(args.out_dir, exist_ok=True)
+
+    photos = real_photo_corpus(ref_dir=args.ref_dir, goldens=args.goldens)
+    if photos:
+        # official NIQE protocol: fit only on each image's sharp patches
+        niqe_model = fit_niqe_model(photos, sharpness_fraction=0.75)
+        print(f"NIQE pristine model: {len(photos)} real photos (sharp patches)")
+    else:
+        niqe_model = fit_niqe_model(_synthetic_pristine_images(n=8, size=256, seed=0))
+        print("NIQE pristine model: synthetic fallback corpus")
+    niqe_path = os.path.join(args.out_dir, "niqe_pristine.npz")
+    np.savez(niqe_path, **niqe_model)
+    print(f"wrote {niqe_path}")
+
+    feats, targets = build_distortion_bank()
+    svr = train_brisque_svr(feats, targets)
+    pred = svr_predict(svr, feats)
+    rmse = float(np.sqrt(np.mean((pred - targets) ** 2)))
+    svr_path = os.path.join(args.out_dir, "brisque_svr.npz")
+    np.savez(svr_path, **svr)
+    print(f"wrote {svr_path} (train rmse {rmse:.2f} over {len(feats)} samples)")
+    return {"rmse": rmse, "n": len(feats), "niqe_photos": len(photos)}
+
+
+if __name__ == "__main__":
+    main()
