@@ -220,7 +220,33 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    apps/streamlit_app.process_single_image with the golden detector (SAHI,
    its CHW launches counted); utils/viz_mpl.FaceVisualizer (drawing only
    where matplotlib imports);
-40. report: the wall seconds of every phase, a ``kernels`` JSON line, the nvidia-smi line, and last the
+40. sharded training with a bfloat16 config at world 1 (an in-process NCCL
+   group again): one SGD step of make_sharded_train_step on yolo11n-pose
+   (golden, float32 parameters, bfloat16 convs), 640x640, batch 8, against
+   make_train_step's bfloat16 step under the bfloat16 gates of
+   tests/test_torch_parallel_train_bf16.py (the loss 5e-3 and the parts
+   5e-2 relative, the gradient 0.8 of its norm); then AdamW, plain and
+   sharded in turns: ms per step, launches, device busy;
+41. tools/profile_stages.main(), with the launch counts set to 0 first
+   (yolo11s-pose seeded, bfloat16, batch 8 of 1024x1536 dct420s): every
+   stage's wall ms, device ms, launches and busy per image; the cumulative
+   device ms may fall from row to row by no more than 5% + 0.05 ms; the
+   full row within 15% of a profile of batch_core on the same wire; the
+   batched gather launched;
+42. tools/profile_layers.main() (42 tiles): every prefix's row per tile;
+   the last prefix within 15% of a profile of forward_nchw;
+43. tools/profile_modules.main() (48 tiles): backbone, neck, both heads,
+   DenseClsHead;
+44. tools/profile_sr_layers.main() (512x768, bfloat16): every conv and block
+   with TFLOP/s under the 989 TFLOP/s bfloat16 peak;
+45. the six probes at their defaults, with the launch counts set to 0
+   first: rgb stage (planar_fma within 0.02 of current in bfloat16,
+   nearest_fma not), idct layout (separable within 0.01 gray levels,
+   bf16_matmul within 4), unpack fusion (every variant's planes exact),
+   stream window (the windows' results equal), SR tiling (planned against
+   whole within 1/255), SR end to end (the same JPEG bytes, the stages
+   within 10% of the cycle); the CHW gather launched;
+46. report: the wall seconds of every phase, a ``kernels`` JSON line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 It imports nothing of jax or facedet_tpu and needs the checkout: run alone
@@ -250,23 +276,6 @@ CANVAS = (1024, 1536)  # the production grid: 6 tiles of 640 at overlap 0.2
 # Parity with the CPU run (the precedent of tests/test_parallel.py:116-127):
 # float32 on both sides, TF32 off; convs sum in another order on the card.
 BOX_ATOL, SCORE_ATOL, KPT_ATOL = 0.05, 1e-3, 0.1
-
-# device kernels by what they do, matched on the lower-cased kernel name in order
-PROFILE_GROUPS = [
-    ("tile gather", ("tile_gather",)),
-    ("deformable-attention sampling (grid_sample)", ("grid_sampler",)),
-    ("layer norm and group norm", ("layer_norm", "layernorm", "group_norm", "rowwisemoments")),
-    ("softmax", ("softmax",)),
-    ("gather, scatter and scan (row takes, sparse unpack)", ("scan", "scatter")),
-    ("layout transposes inside cuDNN", ("nchwtonhwc", "nhwctonchw")),
-    ("batch norm", ("bn_fw", "batch_norm")),
-    ("convolution and matmul", ("conv", "xmma", "gemm", "implicit", "sm80_", "sm90_", "cutlass")),
-    ("copies and casts", ("copy",)),
-    ("host-device copies", ("memcpy", "memset")),
-    ("sort and top-k", ("sort", "radix")),
-    ("elementwise", ("elementwise", "silu")),
-    ("reductions", ("reduce",)),
-]
 
 KERNELS = [
     {
@@ -646,6 +655,8 @@ def _profile(torch, run, wall_ms, n=3, images=1, label="bfloat16"):
     and the kernels that take most of it."""
     from torch.profiler import ProfilerActivity, profile
 
+    from facedet_tpu_torch.utils.profiling import kernel_groups
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             run()
@@ -658,14 +669,7 @@ def _profile(torch, run, wall_ms, n=3, images=1, label="bfloat16"):
     check(device_ms > 0, f"profile {label}: the profiler saw no device time")
     print(f"profile {label}: device busy {device_ms:.3f} ms/image in {launches:.0f} kernel launches, "
           f"{100 * device_ms / wall_ms:.1f}% of the {wall_ms:.3f} ms wall time")
-    groups: dict[str, list] = {}
-    for e in kernels:
-        name = e.key.lower()
-        group = next((g for g, keys in PROFILE_GROUPS if any(k in name for k in keys)), "other")
-        acc = groups.setdefault(group, [0.0, 0])
-        acc[0] += e.self_device_time_total / 1e3 / n
-        acc[1] += e.count / n
-    for group, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+    for group, (ms, count) in kernel_groups(kernels, n).items():
         print(f"  {ms:8.3f} ms/image {count:8.1f} launches  {group}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3 / n:8.3f} ms/image  {e.count / n:8.1f}x  {e.key[:90]}")
@@ -2028,8 +2032,9 @@ def _train_batch(torch, size, b, seed, n=TRAIN_FACES):
     return [torch.from_numpy(a) for a in (images, boxes, np.ones(boxes.shape[:2], bool), kpts)]
 
 
-def _golden_trainee(torch, family, device):
-    """The golden yolo11n-pose or scrfd_2.5g, float32, as a trainer builds it."""
+def _golden_trainee(torch, family, device, dtype="float32"):
+    """The golden yolo11n-pose or scrfd_2.5g as a trainer builds it: float32
+    parameters; yolo11n-pose's config may compute in bfloat16."""
     import dataclasses
 
     from facedet_tpu_torch.models.from_jax import load_jax_variables, load_params_npz
@@ -2037,7 +2042,7 @@ def _golden_trainee(torch, family, device):
     from facedet_tpu_torch.models.yolov11 import YoloConfig, YoloV11
 
     if family == "yolo11n":
-        model, path = YoloV11(YoloConfig(scale="n")), CKPT
+        model, path = YoloV11(YoloConfig(scale="n", dtype=dtype)), CKPT
     else:
         model, path = Scrfd(dataclasses.replace(SCRFD_VARIANTS["scrfd_2.5g"], dtype="float32")), SCRFD_CKPT
     load_jax_variables(model, load_params_npz(path))
@@ -2323,6 +2328,8 @@ def _step_profile(torch, run, ms, label, n=2, top=0, host=False):
     seconds."""
     from torch.profiler import ProfilerActivity, profile
 
+    from facedet_tpu_torch.utils.profiling import kernel_groups
+
     with profile(activities=[ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * host) as prof:
         for _ in range(n):
             run()
@@ -2333,9 +2340,7 @@ def _step_profile(torch, run, ms, label, n=2, top=0, host=False):
     check(device_ms > 0, f"{label}: the profiler saw no device time")
     print(f"profile of {n} {label} steps: {launches:.0f} kernel launches per step, device busy {device_ms:.3f} ms/step "
           f"({100 * device_ms / ms:.1f}% of the median wall time)")
-    for group, keys in PROFILE_GROUPS:
-        ms_g = sum(e.self_device_time_total for e in kernels if any(k in e.key.lower() for k in keys)) / 1e3 / n
-        n_g = sum(e.count for e in kernels if any(k in e.key.lower() for k in keys)) / n
+    for group, (ms_g, n_g) in kernel_groups(kernels, n).items():
         if ms_g > 0.02 * device_ms:
             print(f"  {ms_g:8.3f} ms/step {n_g:8.1f} launches  {group}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
@@ -3543,6 +3548,190 @@ def sr_golden_phase(torch, ref, root):
     return launches
 
 
+# phases 40-45: the bfloat16 sharded step, the profile tools and the probes
+# tests/test_torch_parallel_train_bf16.py's gates for a bfloat16 step, derived
+# from the port's single-process bfloat16 step against JAX's: the loss and
+# the parts relative, the gradient as the norm of the difference over the
+# norm, over all leaves (bfloat16 rounding moves a gradient by a third of
+# its norm: JAX against itself one float32 ulp of input apart)
+BF16_LOSS_GATE, BF16_PART_GATE, BF16_GRAD_GATE = 5e-3, 5e-2, 0.8
+STAGE_NOISE_REL, STAGE_NOISE_MS = 0.05, 0.05  # phase 41: a cumulative row may fall by this much
+
+
+def sharded_bf16_phase(torch, mesh):
+    phase(f"40 sharded training with a bfloat16 config at world 1: make_sharded_train_step, yolo11n-pose "
+          f"{TRAIN_SIZE}x{TRAIN_SIZE}, batch {TRAIN_BATCH}, against make_train_step's bfloat16 step")
+    import numpy as np
+
+    from facedet_tpu_torch.train.yolo_train import make_optimizer, make_sharded_train_step, make_train_step
+
+    batch = [x.cuda() for x in _train_batch(torch, TRAIN_SIZE, TRAIN_BATCH, seed=740)]
+    lr = 1e-2
+    sgd = lambda ps: torch.optim.SGD(ps, lr=lr)  # noqa: E731
+    plain = _golden_trainee(torch, "yolo11n", "cuda", "bfloat16")
+    before = {n: p.detach().clone() for n, p in plain.named_parameters()}
+    sharded = _golden_trainee(torch, "yolo11n", "cuda", "bfloat16")
+    step, shard_state = make_sharded_train_step(sharded, sgd, mesh)
+    shard_state()
+    runs = {}
+    for label, run, model in (("plain", make_train_step(plain, sgd(list(plain.parameters()))), plain),
+                              ("sharded", step, sharded)):
+        total, parts = run(*batch)
+        runs[label] = (float(total), {k: float(v) for k, v in parts.items()},
+                       {n: (p.detach() - before[n]) / -lr for n, p in model.named_parameters()})
+    check(all(p.dtype == torch.float32 for p in sharded.parameters()), "the sharded step's parameters left float32")
+    (loss0, parts0, g0), (loss1, parts1, g1) = runs["plain"], runs["sharded"]
+    loss_err = abs(loss1 - loss0) / abs(loss0)
+    part_err = max(abs(parts1[k] - v) / abs(v) for k, v in parts0.items() if v)
+    num = sum(float((g1[n] - g).double().square().sum()) for n, g in g0.items())
+    grad_err = (num / sum(float(g.double().square().sum()) for g in g0.values())) ** 0.5
+    print(f"one SGD step (lr {lr}), sharded against plain, bfloat16 config: loss {loss_err:.3g} relative, parts "
+          f"{part_err:.3g}, gradient (the update over lr) {grad_err:.3g} of its norm")
+    check(np.isfinite(loss1) and loss_err <= BF16_LOSS_GATE, f"loss {loss1} vs {loss0}")
+    check(part_err <= BF16_PART_GATE, f"loss parts {part_err} relative")
+    check(grad_err <= BF16_GRAD_GATE, f"gradient {grad_err} of its norm")
+
+    adamw = lambda ps: make_optimizer(ps, lr=1e-4)  # noqa: E731
+    model = _golden_trainee(torch, "yolo11n", "cuda", "bfloat16")
+    variants = {"plain": make_train_step(model, adamw(list(model.parameters())))}
+    variants["sharded"], shard_state = make_sharded_train_step(_golden_trainee(torch, "yolo11n", "cuda", "bfloat16"),
+                                                               adamw, mesh)
+    shard_state()
+    times = {label: [] for label in variants}
+    for label in ("plain", "sharded", "sharded", "plain"):  # in turns: the host's speed drifts
+        times[label] += _time_steps(torch, lambda: variants[label](*batch), n=10)  # noqa: B023
+    ms = {label: statistics.median(t) for label, t in times.items()}
+    out = {}
+    for label, run in variants.items():
+        launches, device_ms = _step_profile(torch, lambda: run(*batch), ms[label], f"bfloat16 AdamW {label}")  # noqa: B023
+        out[label] = {"ms": ms[label], "launches": launches, "device_ms": device_ms, "busy": device_ms / ms[label]}
+    print("bfloat16 AdamW step, median of 20 (two runs of 10 after 3, in turns): " + "; ".join(
+        f"{k} {v['ms']:.3f} ms, {v['launches']:.0f} launches, device {v['device_ms']:.3f} ms, busy "
+        f"{100 * v['busy']:.1f}%" for k, v in out.items()))
+    return out
+
+
+def profile_stages_phase(torch):
+    """Returns the batched gather's launches in the tool's run."""
+    phase("41 tools/profile_stages.main(): yolo11s-pose (seeded), bfloat16, batch 8 of 1024x1536 dct420s "
+          "(launch counts from 0)")
+    from facedet_tpu_torch.engine.predict import _on_device, batch_core
+    from facedet_tpu_torch.ops.jpeg_dct import encode_dct420
+    from facedet_tpu_torch.tools import profile_stages as ps
+    from facedet_tpu_torch.utils.profiling import device_time, format_row, per_unit
+    from facedet_tpu_torch.utils.synth import bench_image
+
+    launches = _no_launches()
+    res = _counted(launches, ps.main)
+    rows = res["rows"]
+    prev = 0.0
+    for stage in ps.STAGES:
+        cur = rows[stage]["device_ms"]
+        check(cur is not None and cur > 0, f"{stage}: no device time")
+        check(cur >= prev * (1 - STAGE_NOISE_REL) - STAGE_NOISE_MS,
+              f"cumulative device ms fell at {stage}: {cur:.3f} after {prev:.3f}")
+        prev = cur
+    check(launches["gather_chw_batched"] > 0, f"profile_stages launched no batched gather: {launches}")
+    # batch_core itself on the same wire, the model built as the tool builds it
+    from facedet_tpu_torch.engine.detector import YoloV11PoseDetectionModel
+
+    model = YoloV11PoseDetectionModel(scale="s", dtype="bfloat16", confidence_threshold=0.25, image_size=640,
+                                      max_detections_per_tile=300, device="cuda")
+    planes = encode_dct420(bench_image(1024, 1536), quality=90)
+    plan, wire, consts = ps.stage_inputs(model, [planes] * 8, **ps.SERVING)
+    with torch.inference_mode(), _on_device(model.device):
+        direct = per_unit(device_time(lambda: batch_core(model, plan, wire, consts), device="cuda"), 8)
+    print(format_row("batch_core (direct)", direct, "img"))
+    full = rows["full"]["device_ms"]
+    check(abs(full - direct["device_ms"]) <= 0.15 * direct["device_ms"],
+          f"the full row's {full:.3f} device ms/img against batch_core's {direct['device_ms']:.3f}")
+    print(f"the full row against batch_core: {full:.3f} against {direct['device_ms']:.3f} device ms/img; "
+          f"batched gather launches in the tool's run {launches['gather_chw_batched']}")
+    return launches
+
+
+def profile_layers_modules_phase(torch):
+    phase("42 tools/profile_layers.main(): yolo11s-pose (seeded), bfloat16, 42 tiles of 640x640")
+    import numpy as np
+
+    from facedet_tpu_torch.engine.detector import YoloV11PoseDetectionModel
+    from facedet_tpu_torch.tools import profile_layers as pl
+    from facedet_tpu_torch.tools import profile_modules as pm
+    from facedet_tpu_torch.utils.profiling import device_time, format_row, per_unit
+
+    res = pl.main()
+    check(all(r["device_ms"] > 0 for r in res["rows"].values()), "a layer prefix saw no device time")
+    model = YoloV11PoseDetectionModel(scale="s", dtype="bfloat16", confidence_threshold=0.25, image_size=640,
+                                      max_detections_per_tile=300, device="cuda").model
+    x = torch.from_numpy(np.random.default_rng(0).random((42, 640, 640, 3), np.float32)).permute(0, 3, 1, 2).cuda()
+    with torch.inference_mode():
+        direct = per_unit(device_time(model.forward_nchw, x), 42)
+    print(format_row("forward_nchw (direct)", direct, "tile"))
+    last = res["rows"][pl.STEPS[-1]]["device_ms"]
+    check(abs(last - direct["device_ms"]) <= 0.15 * direct["device_ms"],
+          f"the last prefix's {last:.4f} device ms/tile against forward_nchw's {direct['device_ms']:.4f}")
+    phase("43 tools/profile_modules.main(): yolo11s-pose sections (seeded), bfloat16, 48 tiles of 640x640")
+    mods = pm.main()
+    check(all(r["device_ms"] > 0 for r in mods["rows"].values()), "a module saw no device time")
+    return res, mods
+
+
+def profile_sr_layers_phase(torch):
+    phase("44 tools/profile_sr_layers.main(): RRDB layers at 512x768, bfloat16")
+    from facedet_tpu_torch.tools import profile_sr_layers as psl
+
+    res = psl.main()
+    for label, row in res["rows"].items():
+        check(row["device_ms"] > 0, f"{label}: no device time")
+        if row["peak_share"] is not None:
+            check(row["peak_share"] < 1.0, f"{label}: {row['tflops']:.1f} TFLOP/s is over the peak: a wrong count")
+    rows = res["rows"]
+    print(f"RDB: concat {rows['rdb_concat']['device_ms']:.3f} ms, sum of convs {rows['rdb_sum']['device_ms']:.3f}, "
+          f"elementwise {rows['elementwise']['device_ms']:.3f}; 69 RDBs {res['body_69_rdb_ms']:.1f} ms")
+    return res
+
+
+def probes_phase(torch):
+    """Returns the gather launches of the probes."""
+    phase("45 the six probes at their defaults: rgb stage, idct layout, unpack fusion, stream window, SR tiling, "
+          "SR end to end (fifteen turns; launch counts from 0)")
+    from facedet_tpu_torch.tools import (
+        probe_idct_layout,
+        probe_rgb_stage,
+        probe_sr_e2e,
+        probe_sr_tiling,
+        probe_stream_window,
+        probe_unpack_fusion,
+    )
+
+    launches = _no_launches()
+    rgb = probe_rgb_stage.main()
+    d = rgb["max_abs_vs_current"]
+    check(d["planar_fma"] <= 0.02, f"planar_fma against current {d['planar_fma']} (bfloat16)")
+    check(d["nearest_fma"] > 0.05, f"nearest_fma against current {d['nearest_fma']}: not fidelity-changing?")
+    idct = probe_idct_layout.main()
+    d = idct["max_abs_vs_current"]
+    check(d["separable"] <= 1e-2 and d["bf16_matmul"] <= 4.0, f"idct variants against the production decode {d}")
+    unpack = probe_unpack_fusion.main()
+    check(all(unpack["planes_equal"].values()), f"unpack variants' planes {unpack['planes_equal']}")
+    window = _counted(launches, probe_stream_window.main)
+    check(window["same_results"], "the stream windows' results differ")
+    tiling = _counted(launches, probe_sr_tiling.main)
+    check(tiling["vs_whole"]["planned"]["max"] <= 1 / 255, f"planned against whole {tiling['vs_whole']['planned']}")
+    check(tiling["vs_whole"]["legacy4x420"]["max"] < 1.0, f"legacy against whole {tiling['vs_whole']['legacy4x420']}")
+    e2e = _counted(launches, lambda: probe_sr_e2e.main(["--n", "15"]))
+    check(e2e["same_bytes"], "the staged SR cycle wrote other bytes than enhance_to_jpeg")
+    # the staged cycles against the end-to-end ones over fifteen turns: where no
+    # native JPEG writer is built the cycle is mostly host work, whose speed
+    # varies from one cycle to the next by a tenth and more
+    check(abs(e2e["staged_over_e2e"] - 1.0) <= 0.1,
+          f"the SR stages add up to {e2e['staged_over_e2e']:.4f} of the end-to-end cycle over the turns "
+          f"{e2e['cycles_ms']} (medians {e2e['sum_ms']:.1f} ms against {e2e['e2e_ms']:.1f})")
+    check(launches["gather_chw"] > 0, f"the SR probes launched no CHW gather: {launches}")
+    print(f"probes: stream windows img/s {window['images_per_s']}; SR stages {e2e['stages_ms']}; launches {launches}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3606,6 +3795,12 @@ def main() -> int:
         family_counts["golden fine-tune"] = golden_finetune_phase(torch, ref, eval_root)
         family_counts["golden evaluation"] = golden_eval_phase(torch, ref, eval_root)
         family_counts["golden SR and UI"] = sr_golden_phase(torch, ref, eval_root)
+        with _world_of_one(torch) as mesh:
+            sharded_bf16_phase(torch, mesh)
+        counts["gather_chw_batched"] += profile_stages_phase(torch)["gather_chw_batched"]
+        profile_layers_modules_phase(torch)
+        profile_sr_layers_phase(torch)
+        family_counts["probes"] = probes_phase(torch)
         for family, c in family_counts.items():
             check(c["gather_chw"] > 0, f"the {family} main path did not launch the CHW gather")
             for name, n in c.items():
@@ -3614,7 +3809,8 @@ def main() -> int:
               f"{family_counts['int8']}; video (phase 32): {family_counts['video']}; ONNX export (phase 33): "
               f"{family_counts['onnx export']}; multi-device (phase 34): {family_counts['multi-device']}; golden "
               f"fine-tune (phase 37): {family_counts['golden fine-tune']}; golden evaluation (phase 38): "
-              f"{family_counts['golden evaluation']}; golden SR and UI (phase 39): {family_counts['golden SR and UI']}")
+              f"{family_counts['golden evaluation']}; golden SR and UI (phase 39): {family_counts['golden SR and UI']}; "
+              f"probes (phase 45): {family_counts['probes']}")
         check(family_counts["scrfd"]["gather_chw_batched"] > 0, "SCRFD's batch did not launch the batched gather")
         check(family_counts["multi-device"]["gather_chw_batched"] > 0,
               "the round-robin stream did not launch the batched gather")

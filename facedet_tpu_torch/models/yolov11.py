@@ -104,13 +104,28 @@ class PanNeck(nn.Module):
         self.down1 = ConvBnAct(c(512), c(512), 3, 2)
         self.pan1 = C3k2(c(512) + c(1024), c(1024), d, c3k=True)
 
+    STEPS = ("up0", "up1", "pan_down0", "pan0", "pan_down1", "pan1")
+
     def forward(self, feats):
+        out = dict(self.steps(feats))
+        return out["up1"], out["pan0"], out["pan1"]  # n3, m4, m5
+
+    def steps(self, feats):
+        """Yields (step, output) in ``STEPS`` order, the names of the JAX
+        profile tool (``pan_down0`` is the module ``down0``); a caller that
+        stops iterating runs no later step."""
         p3, p4, p5 = feats
         n4 = self.up0(torch.cat([upsample2x(p5), p4], dim=1))
+        yield "up0", n4
         n3 = self.up1(torch.cat([upsample2x(n4), p3], dim=1))
-        m4 = self.pan0(torch.cat([self.down0(n3), n4], dim=1))
-        m5 = self.pan1(torch.cat([self.down1(m4), p5], dim=1))
-        return n3, m4, m5
+        yield "up1", n3
+        d = self.down0(n3)
+        yield "pan_down0", d
+        m4 = self.pan0(torch.cat([d, n4], dim=1))
+        yield "pan0", m4
+        d = self.down1(m4)
+        yield "pan_down1", d
+        yield "pan1", self.pan1(torch.cat([d, p5], dim=1))
 
 
 class DetectHead(nn.Module):
@@ -145,19 +160,18 @@ class DetectHead(nn.Module):
             x = m(x.to(m.weight.dtype)) if isinstance(m, nn.Conv2d) else m(x)
         return x.float().permute(0, 2, 3, 1)  # NHWC float32, as the flax head
 
+    def branches(self, i: int) -> dict[str, list[str]]:
+        """Level ``i``'s branches: {"box", "cls"[, "kpt"]} -> their layers."""
+        out = {
+            "box": [f"box{i}_0", f"box{i}_1", f"box{i}_2"],
+            "cls": [f"cls{i}_dw0", f"cls{i}_pw0", f"cls{i}_dw1", f"cls{i}_pw1", f"cls{i}_out"],
+        }
+        if self.with_pose:
+            out["kpt"] = [f"kpt{i}_0", f"kpt{i}_1", f"kpt{i}_2"]
+        return out
+
     def forward(self, feats):
-        outs = []
-        for i, f in enumerate(feats):
-            level = {
-                "box": self._branch([f"box{i}_0", f"box{i}_1", f"box{i}_2"], f),
-                "cls": self._branch(
-                    [f"cls{i}_dw0", f"cls{i}_pw0", f"cls{i}_dw1", f"cls{i}_pw1", f"cls{i}_out"], f
-                ),
-            }
-            if self.with_pose:
-                level["kpt"] = self._branch([f"kpt{i}_0", f"kpt{i}_1", f"kpt{i}_2"], f)
-            outs.append(level)
-        return outs
+        return [{b: self._branch(names, f) for b, names in self.branches(i).items()} for i, f in enumerate(feats)]
 
 
 class YoloV11(nn.Module):

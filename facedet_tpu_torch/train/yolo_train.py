@@ -51,7 +51,11 @@ equals the single-device step on the global batch. The hazards:
   shard group, never one rank's shard alone;
 * a DTensor's ``.sum()`` or ``.item()`` either communicates or reads the
   local value: the step reads only local tensors, and the loss it returns
-  is the ``dp`` mean of the ranks' local means, the same on every rank.
+  is the ``dp`` mean of the ranks' local means, the same on every rank;
+* a bfloat16 config casts the weights FSDP2 all-gathers, not the shards:
+  ``train_forward`` unshards the model before it takes the casts, and the
+  BatchNorm parameters stay float32 as flax keeps them (a
+  ``MixedPrecisionPolicy`` would cast those too).
 """
 from __future__ import annotations
 
@@ -460,7 +464,17 @@ def train_forward(model: nn.Module, images: torch.Tensor, **kwargs):
     dtype = model.cfg.compute_dtype
     if dtype == torch.float32:
         return model(images, **kwargs)
-    casts = {name: p.to(dtype) for name, p in _kernel_params(model)}
+    from torch.distributed.fsdp import FSDPModule
+
+    if isinstance(model, FSDPModule):
+        # all-gather first, so the casts are of the whole weights; FSDP's
+        # pre-forward then finds them gathered and leaves the casts in place
+        model.unshard()
+    casts = {}
+    for name, p in _kernel_params(model):
+        if _is_dtensor(p):
+            raise RuntimeError(f"{name} is still a shard after unshard()")
+        casts[name] = p.to(dtype)
     return torch.func.functional_call(model, casts, (images,), kwargs)
 
 
@@ -583,8 +597,6 @@ def _shard_model(model: nn.Module, mesh, fsdp_axis: str) -> list[nn.Parameter]:
         raise ValueError(f"the sharded step takes a ('dp', {fsdp_axis!r}) mesh, not {mesh.mesh_dim_names}")
     if mesh.size() != dist.get_world_size():
         raise ValueError("the mesh must hold every rank of the process group")
-    if model.cfg.compute_dtype != torch.float32:
-        raise ValueError("the sharded step trains float32 configs")
     model.to(_mesh_device(mesh))
     plan = fsdp_param_shardings(model, mesh, axis=fsdp_axis)
     dims = {}
@@ -666,7 +678,9 @@ def make_sharded_train_step(model: nn.Module, tx, mesh, fsdp_axis: str = "tile")
     optimizer. ``step(images [B,H,W,3], gt_boxes [B,M,4], gt_mask [B,M],
     gt_kpts [B,M,K,3] | None) -> (loss, parts)``: every rank passes the same
     global batch and takes its ``dp`` share; the loss and parts are those of
-    the global batch, on every rank. float32 configs only."""
+    the global batch, on every rank. A bfloat16 config trains as
+    ``train_forward`` says: float32 parameters, gradients and optimizer
+    state, the all-gathered conv and linear weights cast for each forward."""
     from facedet_tpu_torch.parallel.sharding import batch_sharding, local_shard
 
     local_step, shard_state = _sharded_step_fn(model, tx, mesh, fsdp_axis)

@@ -28,6 +28,22 @@ def natural_background(h: int, w: int, seed: int = 0) -> np.ndarray:
     return np.clip(rgb, 0, 255).astype(np.uint8)
 
 
+def bench_image(h: int, w: int) -> np.ndarray:
+    """The root ``bench.py``'s ``_make_image``, copied bit for bit: the
+    [h, w, 3] uint8 natural-statistics test image (smooth noise at three
+    scales, seed 0) that the JAX profile tools and probes time on."""
+    rng = np.random.default_rng(0)
+    base = np.zeros((h, w), np.float32)
+    for octave in (8, 32, 128):
+        up = np.kron(
+            rng.standard_normal((octave, octave)).astype(np.float32),
+            np.ones((-(-h // octave), -(-w // octave)), np.float32),
+        )[:h, :w]
+        base += up / octave**0.5
+    base = (base - base.min()) / (base.max() - base.min())
+    return np.stack([base * 255, base * 230 + 10, base * 210 + 25], -1).astype(np.uint8)
+
+
 def synthetic_faces(h: int, w: int, seed: int = 0, n: int = 6, size=(50, 140), background=None) -> np.ndarray:
     """[h, w, 3] uint8 RGB image holding ``n`` faces of ``size`` px, drawn
     on white noise or on the ``background`` image given."""

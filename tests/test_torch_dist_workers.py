@@ -124,10 +124,10 @@ def _sgd(params):
     return torch.optim.SGD(params, lr=SGD_LR)
 
 
-def _model(workdir: str):
+def _model(workdir: str, dtype: str = "float32"):
     from facedet_tpu_torch.models.yolov11 import YoloConfig, YoloV11
 
-    model = YoloV11(YoloConfig(scale="n"))
+    model = YoloV11(YoloConfig(scale="n", dtype=dtype))
     model.load_state_dict(torch.load(os.path.join(workdir, "state.pt")))
     return model
 
@@ -274,3 +274,43 @@ def _clip_case(rank: int, workdir: str, mesh) -> None:
     _save(workdir, rank, "clip", norm=np.float32(norm), ref_norm=np.float32(ref_norm),
           shard_norm=np.float32(shard_norm), w=_full(m.w.grad), b=_full(m.b.grad),
           ref_w=ref[0].numpy(), ref_b=ref[1].numpy())
+
+
+# --- tests/test_torch_parallel_train_bf16.py ---------------------------------------
+
+
+def parallel_train_bf16_worker(rank: int, world: int, workdir: str) -> None:
+    """On a (1, world) CPU mesh with a bfloat16 config: one sharded AdamW
+    step and two staged sharded steps fed JAX's flips on every rank; on rank
+    0 the same single-process step and staged loop, and the single-process
+    float32 step (the control)."""
+    from facedet_tpu_torch.parallel import create_mesh
+    from facedet_tpu_torch.train import yolo_train as tyt
+
+    mesh = create_mesh(world, shape=(1, world))
+    data = {k: torch.from_numpy(v) for k, v in np.load(os.path.join(workdir, "batch.npz")).items()}
+    batch = (data["images"], data["boxes"], data["mask"], data["kpts"])
+    staged = (data["staged_images"], data["staged_boxes"], data["staged_mask"], data["staged_kpts"])
+    if rank == 0:
+        for tag, dtype in (("single", "bfloat16"), ("single_float32", "float32")):
+            model = _model(workdir, dtype)
+            opt = _tx(list(model.parameters()))
+            loss, parts = tyt.make_train_step(model, opt)(*batch)
+            _save(workdir, rank, tag, **_step_arrays(loss, parts, _train_state(model, opt)))
+        model = _model(workdir, "bfloat16")
+        opt = _tx(list(model.parameters()))
+        mean = tyt.make_staged_train_loop(model, opt, steps_per_dispatch=2, flip=True)(
+            *staged, start=0, flips=data["flips"])
+        _save(workdir, rank, "single_staged", loss=np.float32(mean), **_params(model), **_moments(model, opt))
+
+    model = _model(workdir, "bfloat16")
+    step, shard_state = tyt.make_sharded_train_step(model, _tx, mesh)
+    opt = shard_state()
+    loss, parts = step(*batch)
+    _save(workdir, rank, "sharded", **_step_arrays(loss, parts, _train_state(model, opt)))
+
+    model = _model(workdir, "bfloat16")
+    run, shard_state = tyt.make_sharded_staged_train_loop(model, _tx, mesh, steps_per_dispatch=2, flip=True)
+    opt = shard_state()
+    mean = run(*staged, start=0, flips=data["flips"])
+    _save(workdir, rank, "staged", loss=np.float32(mean), **_params(model), **_moments(model, opt))

@@ -72,6 +72,76 @@ def test_device_memory_stats_is_empty_on_the_cpu():
         assert tprof.device_memory_stats() == {}
 
 
+def test_device_time_on_the_cpu_gives_wall_ms_and_no_device_number():
+    calls = []
+    x = torch.ones(4)
+    row = tprof.device_time(lambda t: calls.append(1) or t * 2, x, warmup=2, iters=5, profile_iters=3)
+    assert len(calls) == 7  # warmup and timed calls; nothing profiled where there is no device
+    assert row["device"] == "cpu" and row["wall_ms"] >= 0
+    assert row["device_ms"] is None and row["launches"] is None and row["busy"] is None and row["groups"] == {}
+    per = tprof.per_unit(row, 4)
+    assert per["wall_ms"] == row["wall_ms"] / 4 and per["device_ms"] is None
+    assert "device not measured" in tprof.format_row("x", per)
+    with pytest.raises(ValueError, match="pass device="):
+        tprof.device_time(lambda: None)
+
+
+class _Event:
+    def __init__(self, key, ms, count):
+        self.key, self.self_device_time_total, self.count = key, ms * 1e3, count
+
+
+class _CudaEvent:  # stands in for torch.cuda.Event: every call takes 1 ms
+    def __init__(self, enable_timing=False):
+        pass
+
+    def record(self):
+        pass
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, other):
+        return 1.0
+
+
+@pytest.mark.parametrize("windows_ms, want", [((0.05, 0.2), 0.2), ((0.05, 0.05, 0.05), None)])
+def test_device_time_takes_again_a_window_under_the_least_device_time(monkeypatch, capsys, windows_ms, want):
+    """A profiler window whose device ms per call is under ``min_device_ms``
+    (the card would have beaten its peak) is taken again, as a window that
+    lost its markers is; after three it raises."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "Event", _CudaEvent)
+    windows = iter(windows_ms)
+    monkeypatch.setattr(tprof, "_profile_window",
+                        lambda fn, args, n, device: ([_Event("conv_kernel", next(windows) * n, n)], 0, 0))
+    run = lambda: tprof.device_time(lambda: None, device="cuda", warmup=0, iters=3, profile_iters=2,  # noqa: E731
+                                    min_device_ms=0.1)
+    if want is None:
+        with pytest.raises(RuntimeError, match="no whole profiler window"):
+            run()
+        return
+    row = run()
+    assert row["device_ms"] == pytest.approx(want) and row["wall_ms"] == 1.0 and row["launches"] == 1
+    assert "taking another" in capsys.readouterr().out
+
+
+def test_kernel_groups_match_the_first_group_by_name():
+    events = [_Event("void at::native::tile_gather_chw_kernel", 1.0, 2), _Event("sm90_xmma_fprop_implicit_gemm", 6.0, 4),
+              _Event("Memcpy HtoD (Pageable -> Device)", 0.5, 2), _Event("some_unknown_kernel", 0.2, 2)]
+    groups = tprof.kernel_groups(events, n=2)
+    assert list(groups) == ["convolution and matmul", "tile gather", "host-device copies", "other"]
+    assert groups["convolution and matmul"] == [3.0, 2.0] and groups["other"] == [0.1, 1.0]
+
+
+def test_tree_sum_takes_every_field_as_float32():
+    from facedet_tpu_torch.core.detections import Detections
+
+    det = Detections(torch.ones(2, 4), torch.full((2,), 0.5), torch.ones(2, dtype=torch.int32),
+                     torch.ones(2, 5, 3), torch.tensor([True, False]))
+    assert float(tprof.tree_sum([det, {"a": torch.ones(3, dtype=torch.bfloat16)}, None])) == 8 + 1 + 2 + 30 + 1 + 3
+
+
 def test_trace_writes_a_chrome_trace(tmp_path):
     with tprof.trace(str(tmp_path / "tr")) as log_dir:
         torch.ones(8).sum()
