@@ -201,8 +201,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    dispatches), scrfd_2.5g, rtdetr-l with the golden yolo11n as teacher and
    a 2-fold CV: ms per step, the parity report per split, each checkpoint
    loaded back (yolo: the same parity), launches and device busy per step
-   from the yolo run's last dispatch under the profiler (its ms per step
-   from the dispatches before), the CHW gather launches of parity_on_split;
+   from a dispatch of 5 more steps on the yolo run's last batches under the
+   profiler, the state put back after it (the ms per step from the
+   dispatches before the last), the CHW gather launches of parity_on_split;
 38. golden evaluation with the committed yolo11n: the parts of
    golden_official_eval (build_widerface_layout, the official evaluator in
    both modes), golden_dual_eval (run_dual, baseline and SAHI) and
@@ -246,8 +247,31 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    stream window (the windows' results equal), SR tiling (planned against
    whole within 1/255), SR end to end (the same JPEG bytes, the stages
    within 10% of the cycle); the CHW gather launched;
-46. report: the wall seconds of every phase, a ``kernels`` JSON line, the nvidia-smi line, and last the
+46. tools/probe_int8_conv.main() at the JAX tool's three shapes (42 tiles of
+   80x80x128->128, 40x40x256->256, 160x160x64->64): one tile of each first,
+   the card's int32 output equal to the CPU's int8 route and the bfloat16
+   arm within bfloat16 rounding of a float32 conv (TF32 off); ms, TOP/s and
+   the shares of the 989 TFLOP/s bfloat16 and 1,979 TOPS int8 peaks of the
+   bfloat16 conv, the int8 conv, its im2col and its GEMM;
+47. tools/probe_int8_yolo.main() on phase 36's tree, with the launch counts
+   set to 0 first: 56 quantized convs (the JAX package's count), both
+   parity arms scored every image, the bfloat16 arm's recall and precision
+   within 0.05 of a float32 detector's; the int8 arm's parity printed (no
+   float gate); tile_forward_nchw on 42 tiles, bfloat16 against int8;
+48. tools/probe_upload_pack.main() (64 images of 1024x1536, dct420s): each
+   arm's uploaded bytes read back equal to the host's, the three medians;
+   no gather launched;
+49. the public API ported last on CUDA tensors against the CPU, exactly:
+   the box functions, Detections.from_arrays, batched_empty,
+   attach_keypoints_to_predictions on the card's boxes, create_yolo's
+   weights; pad_image's output through the HWC gather (one launch, counted);
+50. report: the wall seconds of every phase, a ``kernels`` JSON line, the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
+
+Every profile of phases 4-49 is one guarded window of
+utils/profiling.profile_kernels (an empty window first, 64 marker kernels
+each side, taken again when no marker came on one side of the calls or one
+is extra, at most three times); each window taken again is printed.
 
 It imports nothing of jax or facedet_tpu and needs the checkout: run alone
 it fails.
@@ -653,17 +677,10 @@ def _profile(torch, run, wall_ms, n=3, images=1, label="bfloat16"):
     """Device time per image from torch.profiler over ``n`` runs of
     ``images`` images each, its share of the unprofiled wall time per image,
     and the kernels that take most of it."""
-    from torch.profiler import ProfilerActivity, profile
+    from facedet_tpu_torch.utils.profiling import kernel_groups, profile_kernels
 
-    from facedet_tpu_torch.utils.profiling import kernel_groups
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            run()
-        torch.cuda.synchronize()
+    kernels = profile_kernels(run, n=n)
     n *= images
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     launches = sum(e.count for e in kernels) / n
     check(device_ms > 0, f"profile {label}: the profiler saw no device time")
@@ -1466,14 +1483,12 @@ def cli_phase(ev):
 
 
 def _kernel_launches(torch, run) -> int:
-    """Device kernels launched by one ``run()``, counted by the profiler."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device kernels launched by one ``run()``, counted by the profiler
+    (a guarded window, after one unprofiled run)."""
+    from facedet_tpu_torch.utils.profiling import profile_kernels
 
     run()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return sum(e.count for e in profile_kernels(run))
 
 
 def scrfd_fidelity_phase(torch):
@@ -2156,7 +2171,7 @@ def train_main_path_phase(torch):
     ms = statistics.median(times)
     with _exact_float32(True):
         scrfd_times = _time_steps(torch, lambda: sstep(*batch))
-        _step_profile(torch, run, ms, "yolo11n-pose", n=3, top=6, host=True)
+        _step_profile(torch, run, ms, "yolo11n-pose", n=3, top=6)
         after = _time_steps(torch, run, n=10, warmup=0)
     losses = [float(x) for x in losses]
     check(all(np.isfinite(losses)) and np.isfinite(mean), f"training losses {losses}, staged {mean}")
@@ -2320,21 +2335,13 @@ def shape_flops(torch, model, run) -> float:
     return total[0]
 
 
-def _step_profile(torch, run, ms, label, n=2, top=0, host=False):
+def _step_profile(torch, run, ms, label, n=2, top=0):
     """Launches and device-busy ms per ``run()`` from the profiler, their
     share of the wall ``ms`` (TF32 as the caller set it), the groups above 2%
-    of the device time and the ``top`` kernels. With ``host`` the profiler
-    records host activity too, which slows a window of many launches by
-    seconds."""
-    from torch.profiler import ProfilerActivity, profile
+    of the device time and the ``top`` kernels."""
+    from facedet_tpu_torch.utils.profiling import kernel_groups, profile_kernels
 
-    from facedet_tpu_torch.utils.profiling import kernel_groups
-
-    with profile(activities=[ProfilerActivity.CUDA] + [ProfilerActivity.CPU] * host) as prof:
-        for _ in range(n):
-            run()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = profile_kernels(run, n=n)
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     launches = sum(e.count for e in kernels) / n
     check(device_ms > 0, f"{label}: the profiler saw no device time")
@@ -2829,6 +2836,8 @@ def int8_phase(torch, models):
                  label=f"single image {label}")
     from torch.profiler import ProfilerActivity, profile
 
+    # a host-only window: it counts aten:: ops, which a lost device record
+    # cannot shorten, so it needs none of profile_kernels' markers
     with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU]) as prof:
         get_sliced_prediction(images[0], q_serving, **SLICED_KW)
     ops = {e.key: e.count for e in prof.key_averages() if e.key in ("aten::_int_mm", "aten::convolution")}
@@ -3207,7 +3216,7 @@ def sharded_train_phase(torch, mesh):
 
 # phases 36-39: the golden research loop on a synthetic reference tree
 GOLDEN_IMAGES, GOLDEN_FACES = 6, 12  # photos of CANVAS, faces of 50 to 140 px each
-GF_STEPS, GF_STAGED, GF_SPD = 200, 16, 50  # yolo11n-pose, 640x640, batch 8, float32
+GF_STEPS, GF_STAGED, GF_SPD, GF_PROFILED = 200, 16, 50, 5  # yolo11n-pose, 640x640, batch 8, float32
 SR_L1_STEPS, SR_GAN_STEPS, SR_SPD, SR_CROPS = 100, 20, 20, 16
 
 
@@ -3272,12 +3281,20 @@ def _split_line(report) -> str:
 
 
 @contextlib.contextmanager
-def _profile_dispatch(torch, module, name, which):
+def _profile_dispatch(torch, module, name, which, steps):
     """While open, dispatch ``which`` (from 0) of the staged loops that
-    ``module.name`` makes runs under the profiler (device activity only);
-    yields a dict that then holds that dispatch's kernel ``launches`` and
-    device-busy ``device_ms``."""
-    from torch.profiler import ProfilerActivity, profile
+    ``module.name(model, tx, steps_per_dispatch=...)`` makes runs as
+    configured, unprofiled; then a loop of ``steps`` steps a dispatch on the
+    same model and optimizer runs once on the same batches under the
+    profiler (device activity only, a guarded window). Yields a dict that
+    then holds its kernel ``launches`` and device-busy ``device_ms`` per
+    step. The model's state, the optimizer's and the schedule's and the
+    gradients are put back after it (after a window taken again too), so
+    what the loop returns, trains and saves is the configured run's."""
+    import copy
+    import inspect
+
+    from facedet_tpu_torch.utils.profiling import profile_kernels
 
     real = getattr(module, name)
     seen = {}
@@ -3285,18 +3302,30 @@ def _profile_dispatch(torch, module, name, which):
 
     def factory(*a, **k):
         run = real(*a, **k)
+        bound = inspect.signature(real).bind(*a, **k)
+        bound.apply_defaults()
+        model, tx = bound.arguments["model"], bound.arguments["tx"]
 
         def wrapped(*args, **kw):
+            result = run(*args, **kw)
             if next(count) != which:
-                return run(*args, **kw)
+                return result
+            saved = ({key: v.clone() for key, v in model.state_dict().items()},
+                     copy.deepcopy(tx.optimizer.state_dict()), tx.scheduler.state_dict(),
+                     [None if p.grad is None else p.grad.clone() for p in tx.params])
+            short = real(**{**bound.arguments, "steps_per_dispatch": steps})
+            # flips given, so the configured loop's generator draws no more
+            flips = torch.rand((steps, args[0].shape[1]), generator=torch.Generator().manual_seed(which)) < 0.5
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                out = run(*args, **kw)
-                torch.cuda.synchronize()
-            kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-            seen["launches"] = sum(e.count for e in kernels)
-            seen["device_ms"] = sum(e.self_device_time_total for e in kernels) / 1e3
-            return out
+            kernels = profile_kernels(lambda: short(*args, **{**kw, "flips": flips}))
+            seen["launches"] = sum(e.count for e in kernels) / steps
+            seen["device_ms"] = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+            model.load_state_dict(saved[0])
+            tx.optimizer.load_state_dict(saved[1])
+            tx.scheduler.load_state_dict(saved[2])
+            for p, g in zip(tx.params, saved[3]):
+                p.grad = g
+            return result
 
         return wrapped
 
@@ -3337,7 +3366,8 @@ def golden_finetune_phase(torch, ref, root):
         t0 = time.perf_counter()
         run = lambda: gf.main(argv + data + ["--out-dir", os.path.join(root, f"gf_{label}")])  # noqa: B023, E731
         if label == "yolo":
-            with _profile_dispatch(torch, yolo_train, "make_staged_train_loop", GF_STEPS // GF_SPD - 1) as profiled:
+            with _profile_dispatch(torch, yolo_train, "make_staged_train_loop", GF_STEPS // GF_SPD - 1,
+                                   GF_PROFILED) as profiled:
                 reports[label] = _counted(launches, run)
         else:
             reports[label] = _counted(launches, run)
@@ -3356,14 +3386,14 @@ def golden_finetune_phase(torch, ref, root):
     again = gf.parity_on_split(det, goldens, train_recs, ref["root"], 0.35, 0.5)
     check((again["recall"], again["precision"]) == (rep["train_split"]["recall"], rep["train_split"]["precision"]),
           f"the loaded checkpoint: {again['recall']}, {again['precision']} against {rep['train_split']}")
-    # ms per step over the unprofiled dispatches 2-3, launches and device
-    # busy from the profiled last dispatch, all of this one run
+    # ms per step over dispatches 2-3 (the last one's time holds the
+    # profiled short dispatch), launches and device busy from that one
     ms = _ms_per_step(rep["loss_history"][:-1])
-    per_step = {k: v / GF_SPD for k, v in profiled.items()}
     print(f"yolo11n-pose: mean loss per dispatch of {GF_SPD} steps {[round(v, 4) for v in losses]}; {ms:.3f} ms/step "
-          f"({TRAIN_BATCH * 1e3 / ms:.1f} images/s) over dispatches 2-{len(losses) - 1}; last dispatch under the "
-          f"profiler: {per_step['launches']:.0f} kernel launches and device busy {per_step['device_ms']:.3f} ms per "
-          f"step ({100 * per_step['device_ms'] / ms:.1f}% of the ms/step); {_split_line(rep)}")
+          f"({TRAIN_BATCH * 1e3 / ms:.1f} images/s) over dispatches 2-{len(losses) - 1}; a dispatch of "
+          f"{GF_PROFILED} more steps under the profiler, the state put back: {profiled['launches']:.0f} kernel "
+          f"launches and device busy {profiled['device_ms']:.3f} ms per "
+          f"step ({100 * profiled['device_ms'] / ms:.1f}% of the ms/step); {_split_line(rep)}")
     for label, det_cls, kw in (("scrfd", ScrfdDetectionModel, dict(variant="scrfd_2.5g")),
                                ("rtdetr", RtDetrDetectionModel, dict(variant="rtdetr-l"))):
         r = reports[label]
@@ -3732,6 +3762,172 @@ def probes_phase(torch):
     return launches
 
 
+INT8_PEAK_OPS = 1979e12  # H100 SXM dense int8, NVIDIA data sheet
+BF16_PARITY_GATE = 0.05  # |recall| and |precision| of bfloat16 against float32: 3 faces of phase 36's 72
+
+
+def int8_conv_phase(torch, smi):
+    phase("46 probe_int8_conv at the JAX tool's three shapes: a raw 3x3 conv in bfloat16 against int8, the int8 "
+          "im2col and GEMM apart")
+    import numpy as np
+    import torch.nn.functional as F
+
+    from facedet_tpu_torch.engine.detector import _exact_float32
+    from facedet_tpu_torch.tools import probe_int8_conv as pic
+
+    rng = np.random.default_rng(46)
+    with torch.inference_mode():
+        for b, h, w, cin, cout in pic.SHAPES:
+            xf, kf, xi, ki = pic.make_inputs(rng, 1, h, w, cin, cout)  # one tile of the shape
+            got = pic.conv_int8(*pic.int8_operands(xi, ki, "cuda"), cout).cpu()
+            want = pic.conv_int8(*pic.int8_operands(xi, ki, "cpu"), cout)
+            check(got.dtype == torch.int32 and torch.equal(got, want),
+                  f"int8 conv [{h}x{w}x{cin}->{cout}]: the card's int32 output is not the CPU's")
+            xb, kb = pic.bf16_operands(xf, kf, "cuda")
+            bf = pic.conv_bf16(xb, kb).float()
+            with _exact_float32(True):  # TF32 off
+                ref = F.conv2d(xb.float(), kb.float(), padding=1)
+            # half an ulp of the bfloat16 result, plus the float32 sums' order
+            err = (bf - ref).abs()
+            bound = 2**-8 * ref.abs() + 2**-12 * ref.abs().max()
+            check(bool((err <= bound).all()), f"bf16 conv [{h}x{w}x{cin}->{cout}]: {float(err.max())} from float32 "
+                  f"(bound {float(bound.max())})")
+            print(f"[1x{h}x{w}x{cin}->{cout}]: int8 exact against the CPU; bfloat16 within {float(err.max()):.4g} "
+                  f"of float32 (largest |ref| {float(ref.abs().max()):.4g})")
+    res = pic.main()
+    for tag, rows in res["rows"].items():
+        t = res["tops"][tag]
+        print(f"{tag}: bf16 {rows['bf16']['device_ms']:.4f} ms {t['bf16']:.1f} TFLOP/s "
+              f"({100 * t['bf16'] * 1e12 / BF16_FLOPS_PER_S:.1f}% of 989); int8 {rows['int8']['device_ms']:.4f} ms "
+              f"{t['int8']:.1f} TOP/s ({100 * t['int8'] * 1e12 / INT8_PEAK_OPS:.1f}% of 1,979; im2col "
+              f"{rows['im2col']['device_ms']:.4f} ms, GEMM {rows['gemm']['device_ms']:.4f} ms, {t['gemm']:.1f} TOP/s "
+              f"{100 * t['gemm'] * 1e12 / INT8_PEAK_OPS:.1f}%); int8 / bf16 device time "
+              f"{rows['int8']['device_ms'] / rows['bf16']['device_ms']:.2f} on {smi}")
+    return res
+
+
+def int8_yolo_phase(torch, ref):
+    """Returns the gather launches of the probe and the float32 parity run."""
+    phase("47 probe_int8_yolo on the golden yolo11n and phase 36's synthetic tree: parity bfloat16 and int8, "
+          "tile_forward_nchw on 42 tiles (launch counts from 0)")
+    from facedet_tpu_torch import YoloV11PoseDetectionModel
+    from facedet_tpu_torch.tools import golden_finetune as gf
+    from facedet_tpu_torch.tools import probe_int8_yolo as piy
+
+    launches = _no_launches()
+    scored = []
+    real = gf.parity_on_split
+
+    def recorded(*a, **k):
+        out = real(*a, **k)
+        scored.append(len(out["images"]))
+        return out
+
+    gf.parity_on_split = recorded
+    try:
+        rep = _counted(launches, lambda: piy.main(["--goldens", ref["goldens"], "--ref-dir", ref["root"],
+                                                   "--keypoints", ref["keypoints"]]))
+    finally:
+        gf.parity_on_split = real
+    check(rep["quantized_convs"] == JAX_INT8_CONVS,
+          f"{rep['quantized_convs']} quantized convs, the JAX package quantizes {JAX_INT8_CONVS}")
+    check(scored == [GOLDEN_IMAGES, GOLDEN_IMAGES], f"the two parity arms scored {scored} of {GOLDEN_IMAGES} images")
+    det32 = YoloV11PoseDetectionModel(model_path=CKPT, scale="n", dtype="float32", confidence_threshold=0.25,
+                                      image_size=SLICE, device="cuda")
+    with open(ref["goldens"]) as f:
+        goldens = json.load(f)
+    records = gf.load_golden_dataset(ref["goldens"], ref["root"], ref["keypoints"], min_conf=0.2)
+    r32 = _counted(launches, lambda: real(det32, goldens, records, ref["root"], 0.35, 0.5))
+    bf, q = rep["parity"]["bf16"], rep["parity"]["int8"]
+    for key in ("recall", "precision"):
+        check(abs(bf[key] - r32[key]) <= BF16_PARITY_GATE,
+              f"bfloat16 {key} {bf[key]:.4f} against float32 {r32[key]:.4f} (gate {BF16_PARITY_GATE})")
+    d = rep["device"]
+    check(d["bf16_ms_per_batch"] and d["int8_ms_per_batch"], f"no device time in {d}")
+    print(f"parity (conf 0.35, IoU 0.5): float32 recall {r32['recall']:.4f} precision {r32['precision']:.4f}; "
+          f"bfloat16 {bf['recall']:.4f} {bf['precision']:.4f}; int8 {q['recall']:.4f} {q['precision']:.4f} "
+          f"(no float gate: ROADMAP.md §3 item 3); tile_forward_nchw on {d['tiles']} tiles: bfloat16 "
+          f"{d['bf16_ms_per_batch']} device ms ({d['bf16_wall_ms_per_batch']} wall), int8 {d['int8_ms_per_batch']} "
+          f"({d['int8_wall_ms_per_batch']}), speedup {d['speedup']}; launches {launches}")
+    return launches
+
+
+def upload_phase(torch):
+    phase("48 probe_upload_pack at its defaults: 64 images of 1024x1536 in dct420s, six uploads against one wire "
+          "from pageable memory")
+    from facedet_tpu_torch.tools import probe_upload_pack as pup
+
+    launches = _reset_launches()
+    res = pup.main()
+    check(res["memory"] == "pageable" and all(res["readback_equal"].values()),
+          f"an arm's uploaded bytes read back other than the host's: {res['readback_equal']}")
+    check(not any(launches.values()), f"the upload probe launched a gather: {launches}")
+    print(f"medians (s per batch of 64, wire {res['wire_bytes'] / 1e6:.2f} MB): "
+          f"{json.dumps(res['median_s'])}; the serving path's pinned one-wire upload: phase 8")
+    return res
+
+
+def api_phase(torch):
+    """Returns the HWC gather launches of ``pad_image`` then ``gather_tiles``."""
+    phase("49 the public API ported last, on the card against the CPU: boxes, Detections.from_arrays, "
+          "batched_empty, pad_image into the HWC gather, attach_keypoints_to_predictions, create_yolo")
+    import numpy as np
+
+    from facedet_tpu_torch.core import boxes as B
+    from facedet_tpu_torch.core.detections import Detections, batched_empty
+    from facedet_tpu_torch.engine.detector import attach_keypoints_to_predictions
+    from facedet_tpu_torch.engine.prediction import ObjectPrediction
+    from facedet_tpu_torch.models.yolov11 import YoloConfig, create_yolo
+    from facedet_tpu_torch.ops.tiler import gather_tiles, pad_image
+
+    rng = np.random.default_rng(49)
+    xy = rng.uniform(0, 1400, (64, 2)).astype(np.float32)
+    boxes = np.concatenate([xy, xy + rng.uniform(1, 120, (64, 2)).astype(np.float32)], 1)
+    other = boxes[::-1].copy()
+    shifts = rng.uniform(0, 900, (2, 64)).astype(np.float32)  # one (x, y) shift per box
+    sides = {}
+    for dev in ("cuda", "cpu"):
+        b, o = torch.from_numpy(boxes).to(dev), torch.from_numpy(other).to(dev)
+        sx, sy = torch.from_numpy(shifts).to(dev)
+        sides[dev] = {name: getattr(B, name)(b) for name in
+                      ("xyxy_to_xywh", "xywh_to_xyxy", "xyxy_to_cxcywh", "cxcywh_to_xyxy")}
+        sides[dev].update(shift=B.shift_boxes(b, 12.5, -3.0), shift_each=B.shift_boxes(b, sx, sy),
+                          scale=B.scale_boxes(b, 0.5), union=B.union_boxes(b, o))
+        det = Detections.from_arrays(b, b[:, 0], capacity=100)
+        sides[dev].update({f"from_arrays.{f}": getattr(det, f) for f in ("boxes", "scores", "classes", "kpts", "valid")})
+        empty = batched_empty(4, 300, device=dev)
+        sides[dev].update({f"batched_empty.{f}": getattr(empty, f) for f in ("boxes", "kpts", "valid")})
+    for name, got in sides["cuda"].items():
+        check(got.device.type == "cuda" and torch.equal(got.cpu(), sides["cpu"][name]),
+              f"{name}: the card's result is not the CPU's")
+    image = rng.random((CANVAS[0] - 24, CANVAS[1] - 36, 3)).astype(np.float32)
+    offsets = torch.from_numpy(production_offsets())
+    launches = _reset_launches()
+    tiles = gather_tiles(pad_image(torch.from_numpy(image).cuda(), *CANVAS), offsets.cuda(), SLICE, SLICE).cpu()
+    hwc = launches["gather_hwc"]
+    want = gather_tiles(pad_image(torch.from_numpy(image), *CANVAS), offsets, SLICE, SLICE)
+    check(hwc == 1 and torch.equal(tiles, want), f"pad_image into the HWC gather: {hwc} launches, equal "
+          f"{torch.equal(tiles, want)}")
+    cache = {tuple(round(float(v), 1) for v in row): rng.random((5, 3)) for row in boxes[:32]}
+    kpts = {}
+    for dev in ("cuda", "cpu"):
+        b = torch.from_numpy(boxes).to(dev)  # as cached (the exact key), then moved (the IoU scan)
+        rows = torch.cat([b, B.shift_boxes(b, 0.3, -0.2)]).cpu().tolist()
+        preds = attach_keypoints_to_predictions([ObjectPrediction(r, 0.9) for r in rows], cache)
+        kpts[dev] = [p.keypoints for p in preds]
+    check(all((a is None and b is None) or (a is not None and b is not None and np.array_equal(a, b))
+              for a, b in zip(kpts["cuda"], kpts["cpu"])) and sum(k is not None for k in kpts["cuda"]) >= 64,
+          "attach_keypoints_to_predictions: the card's boxes got other keypoints than the CPU's")
+    cfg = YoloConfig(scale="n")
+    on_card, on_cpu = create_yolo(cfg, seed=49).state_dict(), create_yolo(cfg, seed=49, device="cpu").state_dict()
+    check(on_card.keys() == on_cpu.keys() and all(torch.equal(on_card[k].cpu(), on_cpu[k]) for k in on_cpu),
+          "create_yolo on the card holds other weights than on the CPU")
+    print(f"{len(sides['cuda'])} results equal card against CPU; pad_image {image.shape[:2]} -> {CANVAS} then "
+          f"gather_tiles: {hwc} HWC launch, tiles equal; {sum(k is not None for k in kpts['cuda'])} of "
+          f"{2 * len(boxes)} predictions given keypoints on both; create_yolo's {len(on_cpu)} tensors equal")
+    return {"gather_hwc": hwc}
+
+
 def main() -> int:
     try:
         import torch
@@ -3801,6 +3997,10 @@ def main() -> int:
         profile_layers_modules_phase(torch)
         profile_sr_layers_phase(torch)
         family_counts["probes"] = probes_phase(torch)
+        int8_conv_phase(torch, smi)
+        family_counts["int8 probe"] = int8_yolo_phase(torch, ref)
+        upload_phase(torch)
+        counts["gather_hwc"] += api_phase(torch)["gather_hwc"]
         for family, c in family_counts.items():
             check(c["gather_chw"] > 0, f"the {family} main path did not launch the CHW gather")
             for name, n in c.items():
@@ -3810,7 +4010,7 @@ def main() -> int:
               f"{family_counts['onnx export']}; multi-device (phase 34): {family_counts['multi-device']}; golden "
               f"fine-tune (phase 37): {family_counts['golden fine-tune']}; golden evaluation (phase 38): "
               f"{family_counts['golden evaluation']}; golden SR and UI (phase 39): {family_counts['golden SR and UI']}; "
-              f"probes (phase 45): {family_counts['probes']}")
+              f"probes (phase 45): {family_counts['probes']}; int8 probe (phase 47): {family_counts['int8 probe']}")
         check(family_counts["scrfd"]["gather_chw_batched"] > 0, "SCRFD's batch did not launch the batched gather")
         check(family_counts["multi-device"]["gather_chw_batched"] > 0,
               "the round-robin stream did not launch the batched gather")

@@ -75,6 +75,35 @@ class Detections:
             valid=torch.zeros((capacity,), dtype=torch.bool, device=device),
         )
 
+    @staticmethod
+    def from_arrays(boxes, scores, classes=None, kpts=None, capacity: int | None = None,
+                    num_keypoints: int = NUM_FACE_KEYPOINTS, device=None) -> "Detections":
+        """Build from concrete arrays (numpy, lists or tensors) on ``device``
+        (default: that of ``boxes`` where it is a tensor, else the CPU):
+        padded with zeros or truncated to ``capacity`` (default: the row
+        count, at least 1), ``valid`` set on the first rows given."""
+        if device is None:
+            device = boxes.device if isinstance(boxes, torch.Tensor) else "cpu"
+        as_t = lambda x, dt: torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x,  # noqa: E731
+                                             device=device).to(dt)
+        boxes = as_t(boxes, torch.float32).reshape(-1, 4)
+        n = boxes.shape[0]
+        scores = as_t(scores, torch.float32).reshape(-1)
+        classes = (torch.zeros((n,), dtype=torch.int32, device=device) if classes is None
+                   else as_t(classes, torch.int32).reshape(-1))
+        kpts = (torch.zeros((n, num_keypoints, 3), dtype=torch.float32, device=device) if kpts is None
+                else as_t(kpts, torch.float32).reshape(n, -1, 3))
+        cap = capacity if capacity is not None else max(n, 1)
+        m = min(n, cap)
+
+        def fill(x):
+            out = torch.zeros((cap,) + tuple(x.shape[1:]), dtype=x.dtype, device=device)
+            out[:m] = x[:m]
+            return out
+
+        return Detections(boxes=fill(boxes), scores=fill(scores), classes=fill(classes), kpts=fill(kpts),
+                          valid=torch.arange(cap, device=device) < n)
+
     def sort_by_score(self) -> "Detections":
         """Descending score order; invalid rows sink to the end. The sort is
         stable (as ``jnp.argsort``), so tied scores keep their row order."""
@@ -117,3 +146,9 @@ def concat_detections(parts: list[Detections], capacity: int) -> Detections:
     keep the order of ``parts`` and of the rows inside each part."""
     det = Detections(*(torch.cat([getattr(p, f) for p in parts], dim=_DET_AXIS[f]) for f in _FIELDS))
     return det.sort_by_score().truncate(capacity)
+
+
+def batched_empty(batch: int, capacity: int, num_keypoints: int = NUM_FACE_KEYPOINTS, device=None) -> Detections:
+    """``Detections.empty`` with a leading batch axis ``[batch, capacity, ...]``."""
+    return Detections.empty(capacity, num_keypoints, device).map(
+        lambda x: x[None].expand((batch,) + tuple(x.shape)).contiguous())

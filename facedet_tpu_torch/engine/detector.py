@@ -218,6 +218,33 @@ class DetectionModel:
         return [self._object_prediction_list]
 
 
+def attach_keypoints_to_predictions(predictions, keypoint_cache=None, iou_threshold=0.5):
+    """The reference's post-merge keypoint re-attachment
+    (utils/yolo_wrapper.py:168-200), as the JAX package keeps it: keypoints
+    ride through the merge as tensor columns, so this only fills a
+    prediction whose ``keypoints`` is None from ``keypoint_cache``
+    ({(x1, y1, x2, y2): kpts}), by the exact key of its box rounded to 0.1
+    first, then by the first cached box of IoU over ``iou_threshold``
+    (``eval/dual.calculate_iou``). Returns ``predictions``, filled in place."""
+    if not keypoint_cache:
+        return predictions
+    from facedet_tpu_torch.eval.dual import calculate_iou
+
+    for p in predictions:
+        if p.keypoints is not None:
+            continue
+        box = tuple(round(v, 1) for v in p.bbox.to_xyxy())
+        if box in keypoint_cache:
+            p.keypoints = np.asarray(keypoint_cache[box], np.float32)
+            continue
+        x1, y1, x2, y2 = p.bbox.to_xyxy()
+        for (kx1, ky1, kx2, ky2), kpts in keypoint_cache.items():
+            if calculate_iou([x1, y1, x2 - x1, y2 - y1], [kx1, ky1, kx2 - kx1, ky2 - ky1]) > iou_threshold:
+                p.keypoints = np.asarray(kpts, np.float32)
+                break
+    return predictions
+
+
 @contextlib.contextmanager
 def _exact_float32(on: bool):
     """Turn TF32 off for cuBLAS and cuDNN while ``on`` (the float32 fidelity
@@ -243,6 +270,11 @@ class YoloV11PoseDetectionModel(DetectionModel):
     mode; ``bn_dtype`` follows ``dtype`` unless given. ``s2d_early`` is
     accepted for signature parity and ignored: the JAX package's
     space-to-depth rewrite computes the same function."""
+
+    def attach_keypoints_to_predictions(self, predictions, iou_threshold=0.5):
+        """The reference's method (utils/yolo_wrapper.py:168): a pass-through,
+        as in the JAX package, for keypoints survive the merge here."""
+        return attach_keypoints_to_predictions(predictions, None, iou_threshold)
 
     def __init__(
         self,

@@ -40,6 +40,10 @@ __all__ = [
     "ConvBnAct",
     "Int8ConvBnAct",
     "int8_matmul",
+    "int8_gemm_weight",
+    "int8_im2col",
+    "int8_cols_matmul",
+    "int8_conv",
     "Bottleneck",
     "C3k",
     "C3k2",
@@ -162,6 +166,55 @@ def _pad8(n: int) -> int:
     return -(-n // 8) * 8
 
 
+def int8_gemm_weight(qkernel: torch.Tensor, groups: int = 1) -> torch.Tensor:
+    """int8 OIHW ``qkernel`` [Cout, Cin/groups, k, k] -> the GEMM weight
+    [groups, N', K'] of ``int8_conv``: each group's rows in (dy, dx, c)
+    order, zero-padded to multiples of 8."""
+    cout, cin_g, k, _ = qkernel.shape
+    n_g = cout // groups
+    w = qkernel.reshape(groups, n_g, cin_g, k, k).permute(0, 1, 3, 4, 2).reshape(groups, n_g, k * k * cin_g)
+    return F.pad(w, (0, _pad8(k * k * cin_g) - k * k * cin_g, 0, _pad8(n_g) - n_g)).contiguous()
+
+
+def int8_im2col(xq: torch.Tensor, k: int, s: int = 1) -> torch.Tensor:
+    """int8 NHWC ``xq`` [B, H, W, C] -> the k x k windows of its zero-padded
+    (k // 2 each side) form at stride ``s``, gathered by slicing into [B*Ho*Wo,
+    k*k, C] in (dy, dx) order: the slice im2col of the int8 conv."""
+    b, h, w, c = xq.shape
+    p = k // 2
+    ho, wo = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+    if k == 1 and s == 1:
+        return xq.reshape(b * ho * wo, 1, c)
+    if p:
+        xq = F.pad(xq, (0, 0, p, p, p, p))
+    span_h, span_w = s * (ho - 1) + 1, s * (wo - 1) + 1
+    return torch.stack(
+        [xq[:, dy : dy + span_h : s, dx : dx + span_w : s] for dy in range(k) for dx in range(k)], dim=3
+    ).reshape(b * ho * wo, k * k, c)
+
+
+def int8_cols_matmul(cols: torch.Tensor, gemm_weight: torch.Tensor, n_g: int) -> torch.Tensor:
+    """``int8_im2col``'s [M, k*k, C] times ``int8_gemm_weight``'s [groups, N',
+    K'] -> int32 [M, groups * n_g], one ``int8_matmul`` per group."""
+    m, kk, c = cols.shape
+    groups = gemm_weight.shape[0]
+    cin_g = c // groups
+    accs = [int8_matmul(cols[:, :, g * cin_g : (g + 1) * cin_g].reshape(m, kk * cin_g), gemm_weight[g], n_g)
+            for g in range(groups)]
+    return accs[0] if groups == 1 else torch.cat(accs, dim=1)
+
+
+def int8_conv(xq: torch.Tensor, gemm_weight: torch.Tensor, k: int, s: int, n_g: int) -> torch.Tensor:
+    """The int8 conv of ``Int8ConvBnAct``, exactly: int8 NHWC ``xq`` [B, H,
+    W, C], padding k // 2, stride ``s``, the weight of ``int8_gemm_weight``
+    -> int32 NHWC [B, Ho, Wo, groups * n_g]. The same ops on the CPU and the
+    card."""
+    b, h, w, _ = xq.shape
+    p = k // 2
+    ho, wo = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+    return int8_cols_matmul(int8_im2col(xq, k, s), gemm_weight, n_g).reshape(b, ho, wo, -1)
+
+
 class Int8ConvBnAct(nn.Module):
     """``ConvBnAct`` with int8 weights: the reference's int8 serving path
     (facedet_tpu/models/layers.py ``_int8_forward``).
@@ -200,40 +253,22 @@ class Int8ConvBnAct(nn.Module):
     def pack(self) -> None:
         """Rebuild ``gemm_weight`` [groups, N', K'] from ``qkernel``: each
         group's rows in (dy, dx, c) order, zero-padded."""
-        cout, cin_g, k, _ = self.qkernel.shape
-        n_g = cout // self.groups
-        w = self.qkernel.reshape(self.groups, n_g, cin_g, k, k).permute(0, 1, 3, 4, 2).reshape(self.groups, n_g, k * k * cin_g)
-        self.gemm_weight = F.pad(w, (0, _pad8(k * k * cin_g) - k * k * cin_g, 0, _pad8(n_g) - n_g)).contiguous()
+        self.gemm_weight = int8_gemm_weight(self.qkernel, self.groups)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
-        k, s, p = self.kernel, self.stride, self.kernel // 2
-        ho, wo = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+        k, s = self.kernel, self.stride
         # float32 NHWC in one copy, then the reference's quantization
         q = torch.empty((b, h, w, c), dtype=torch.float32, device=x.device).copy_(x.permute(0, 2, 3, 1))
         q = torch.div(q, self.ascale)
         torch.round(q, out=q)
         torch.clamp(q, -127.0, 127.0, out=q)
         xq = q.to(torch.int8)
-        if p:
-            xq = F.pad(xq, (0, 0, p, p, p, p))
-        if k == 1 and s == 1:
-            cols = xq.reshape(b * ho * wo, 1, c)
-        else:
-            span_h, span_w = s * (ho - 1) + 1, s * (wo - 1) + 1
-            cols = torch.stack(
-                [xq[:, dy : dy + span_h : s, dx : dx + span_w : s] for dy in range(k) for dx in range(k)], dim=3
-            ).reshape(b * ho * wo, k * k, c)
-        n_g, cin_g = self.qkernel.shape[0] // self.groups, c // self.groups
-        accs = [
-            int8_matmul(cols[:, :, g * cin_g : (g + 1) * cin_g].reshape(b * ho * wo, k * k * cin_g), self.gemm_weight[g], n_g)
-            for g in range(self.groups)
-        ]
-        acc = accs[0] if self.groups == 1 else torch.cat(accs, dim=1)
-        y = (acc * self.oscale + self.obias).to(self.bn_dtype)
+        acc = int8_conv(xq, self.gemm_weight, k, s, self.qkernel.shape[0] // self.groups)
+        y = (acc.reshape(-1, acc.shape[-1]) * self.oscale + self.obias).to(self.bn_dtype)
         if self.act:
             y = F.silu(y)
-        return y.reshape(b, ho, wo, -1).permute(0, 3, 1, 2)
+        return y.reshape(acc.shape).permute(0, 3, 1, 2)
 
 
 class Bottleneck(nn.Module):

@@ -14,9 +14,10 @@ import dataclasses
 import torch
 from torch import nn
 
+from facedet_tpu_torch.models.init import random_init
 from facedet_tpu_torch.models.layers import C2PSA, C3k2, ConvBnAct, Int8ConvBnAct, SPPF, make_divisible, upsample2x
 
-__all__ = ["SCALES", "STRIDES", "REG_MAX", "YoloConfig", "Backbone", "PanNeck", "DetectHead", "YoloV11"]
+__all__ = ["SCALES", "STRIDES", "REG_MAX", "YoloConfig", "Backbone", "PanNeck", "DetectHead", "YoloV11", "create_yolo"]
 
 # depth multiple, width multiple, max channels — published YOLOv11 scales
 SCALES: dict[str, tuple[float, float, int]] = {
@@ -203,3 +204,21 @@ class YoloV11(nn.Module):
         gathers it."""
         x = x.to(self.cfg.compute_dtype)
         return self.head(self.neck(self.backbone(x)))
+
+
+def create_yolo(cfg: YoloConfig, seed: int, image_size: int = 640, device=None) -> YoloV11:
+    """A ``YoloV11(cfg)`` with random weights from ``seed`` (a seeded
+    ``torch.Generator`` through ``models/init.random_init``, where the JAX
+    package takes a PRNG key), its convs in the config's dtype, in eval
+    mode, on ``device`` (default: the card; it raises without one, and
+    ``"cpu"`` runs without it). The JAX function returns (module,
+    variables); a torch module holds its variables. ``image_size`` is the
+    JAX signature's, which sizes flax's dummy init input: no shape of the
+    torch module depends on it."""
+    from facedet_tpu_torch.engine.detector import resolve_device
+
+    del image_size
+    dev = resolve_device(device)
+    model = YoloV11(cfg)
+    random_init(model, seed)
+    return model.set_dtypes().eval().to(dev)

@@ -28,6 +28,7 @@ __all__ = [
     "bucket_tile_count",
     "pad_grid_offsets",
     "bucket_image_dim",
+    "pad_image",
     "gather_tiles",
 ]
 
@@ -134,6 +135,15 @@ def pad_grid_offsets(grid: TileGrid, target_tiles: int) -> tuple[np.ndarray, np.
 def bucket_image_dim(x: int, multiple: int = 256) -> int:
     """Round an image dimension up to a coarse bucket."""
     return max(multiple, -(-x // multiple) * multiple)
+
+
+def pad_image(image: torch.Tensor, padded_h: int, padded_w: int) -> torch.Tensor:
+    """Zero-pad an HWC image at the bottom and right so every tile lies in
+    bounds (the image itself where it already has that size)."""
+    h, w = image.shape[0], image.shape[1]
+    if h == padded_h and w == padded_w:
+        return image
+    return torch.nn.functional.pad(image, (0, 0, 0, padded_w - w, 0, padded_h - h))
 
 
 def gather_tiles(image: torch.Tensor, offsets: torch.Tensor, slice_h: int, slice_w: int) -> torch.Tensor:

@@ -33,6 +33,7 @@ __all__ = [
     "PROFILE_GROUPS",
     "kernel_groups",
     "device_time",
+    "profile_kernels",
     "per_unit",
     "marginal",
     "tree_sum",
@@ -190,21 +191,25 @@ def _tensor_device(tree):
 
 
 _PROFILE_TRIES = 3
-# Late in a long process the profiler has delivered a window's last kernel
-# records late, into the next window (seen on the H100: a 3-kernel window
-# came back empty, a forward's window 30 launches short, a conv's window with
-# another window's kernels in it). So each window is opened after an empty
-# one that takes such late records, and its calls run between two runs of
-# _PAD marker kernels; the window counts when fewer than _PAD of its markers
-# are missing and none is extra: every call between them was recorded, and
-# nothing else.
+# Late in a long process the profiler loses the first kernel records of a
+# window and delivers its last ones late, into the next window (seen on the
+# H100: a 3-kernel window came back empty, a forward's window 30 launches
+# short, a conv's window with another window's kernels in it; after a window
+# of a 50-step training dispatch, the first records of every later window
+# missing, and sometimes all of a window's trailing markers). So each window
+# is opened after an empty one that takes such late records, and its calls
+# run between two runs of _PAD marker kernels; the window counts when at
+# least one marker came before the calls' first kernel and one after their
+# last, and none is extra: records go missing from a window's ends only, so
+# every call between the markers was recorded, and nothing else.
 _PAD = 64
 _MARKER = "spin_kernel"  # torch.cuda._sleep's kernel
 
 
 def _profile_window(fn, args, n: int, device):
-    """(the card's kernel events of ``n`` calls of ``fn``, marker kernels
-    missing, marker kernels extra) from one ``torch.profiler`` window."""
+    """(the card's kernel events of ``n`` calls of ``fn``, the markers
+    missing on the side of the calls that lacks more of them, marker kernels
+    extra) from one ``torch.profiler`` window."""
     from torch.profiler import ProfilerActivity, profile
 
     def markers():
@@ -220,9 +225,39 @@ def _profile_window(fn, args, n: int, device):
             fn(*args)
         torch.cuda.synchronize(device)
         markers()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    seen = sum(e.count for e in events if _MARKER in e.key)
-    return [e for e in events if _MARKER not in e.key], max(0, 2 * _PAD - seen), max(0, seen - 2 * _PAD)
+    cuda = torch.autograd.DeviceType.CUDA
+    records = sorted((e.time_range.start, _MARKER in e.name) for e in prof.events() if e.device_type == cuda)
+    calls = [t for t, is_marker in records if not is_marker] or [float("inf"), float("-inf")]
+    before = sum(1 for t, is_marker in records if is_marker and t < calls[0])
+    after = sum(1 for t, is_marker in records if is_marker and t > calls[-1])
+    seen = sum(is_marker for _, is_marker in records)
+    events = [e for e in prof.key_averages() if e.device_type == cuda]
+    return ([e for e in events if _MARKER not in e.key], max(0, _PAD - min(before, after)),
+            max(0, seen - 2 * _PAD))
+
+
+def profile_kernels(fn: Callable, *args, n: int = 1, device=None, min_device_ms: float | None = None) -> list:
+    """The card's kernel events (``key_averages()`` rows of device type
+    CUDA: kernels, copies, memsets) of ``n`` calls of ``fn(*args)`` from one
+    whole ``torch.profiler`` window that records the card's activity only.
+
+    The window is opened after an empty one and its calls run between two
+    runs of 64 marker kernels (see ``_PAD``). A window with no marker
+    recorded on one side of its calls or with an extra one, or whose device
+    ms per call is not above ``min_device_ms`` (0 when None: a window with
+    no device time), is printed and taken again, the calls run anew; after three such
+    windows it raises, for its number would not be the device's. So a call
+    that changes state (a training dispatch) may run up to three times."""
+    device = torch.device(device if device is not None else "cuda")
+    for _ in range(_PROFILE_TRIES):
+        kernels, missing, extra = _profile_window(fn, args, n, device)
+        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+        if missing < _PAD and not extra and device_ms > max(min_device_ms or 0.0, 0.0):
+            return kernels
+        print(f"profile_kernels: a profiler window missed {missing} of the {_PAD} marker kernels on one side of its "
+              f"calls and held {extra} extra, {device_ms:.4f} device ms a call (least {min_device_ms}); taking "
+              f"another", flush=True)
+    raise RuntimeError(f"profile_kernels: no whole profiler window in {_PROFILE_TRIES}")
 
 
 def device_time(fn: Callable, *args, device=None, warmup: int = 3, iters: int = 10, profile_iters: int = 3,
@@ -237,11 +272,10 @@ def device_time(fn: Callable, *args, device=None, warmup: int = 3, iters: int = 
     running); then ``profile_iters`` calls under ``torch.profiler`` give
     ``device_ms`` (the kernels' summed self time per call), ``launches``
     (kernels, copies and memsets per call), ``busy`` = device / wall and
-    ``groups`` (``kernel_groups``). A window whose records came late or
-    mixed (see ``_PAD``), or whose device ms per call is under
-    ``min_device_ms`` (the least time the card can take for the work, where
-    the caller knows it), is taken again; after three such windows it
-    raises: the number would not be the device's.
+    ``groups`` (``kernel_groups``), from ``profile_kernels``' guarded
+    window: one whose records came late or mixed, or whose device ms per
+    call is under ``min_device_ms`` (the least time the card can take for
+    the work, where the caller knows it), is taken again.
 
     On the CPU: ``wall_ms`` by ``time.perf_counter``; ``device_ms``,
     ``launches`` and ``busy`` are None and ``groups`` is empty, for there is
@@ -268,15 +302,8 @@ def device_time(fn: Callable, *args, device=None, warmup: int = 3, iters: int = 
         end.synchronize()
         times.append(start.elapsed_time(end))
     wall = float(np.median(times))
-    for _ in range(_PROFILE_TRIES):
-        kernels, missing, extra = _profile_window(fn, args, profile_iters, device)
-        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / profile_iters
-        if missing < _PAD and not extra and device_ms > max(min_device_ms or 0.0, 0.0):
-            break
-        print(f"device_time: a profiler window missed {missing} and held {extra} extra of its {2 * _PAD} marker "
-              f"kernels, {device_ms:.4f} device ms a call (least {min_device_ms}); taking another", flush=True)
-    else:
-        raise RuntimeError(f"device_time: no whole profiler window in {_PROFILE_TRIES}")
+    kernels = profile_kernels(fn, *args, n=profile_iters, device=device, min_device_ms=min_device_ms)
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / profile_iters
     return {"device": str(device), "wall_ms": wall, "device_ms": device_ms,
             "launches": sum(e.count for e in kernels) / profile_iters, "busy": device_ms / wall,
             "groups": kernel_groups(kernels, profile_iters)}

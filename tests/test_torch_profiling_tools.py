@@ -126,6 +126,86 @@ def test_device_time_takes_again_a_window_under_the_least_device_time(monkeypatc
     assert "taking another" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("windows, taken", [([(64, 0), (0, 0)], 2), ([(0, 1), (70, 0), (64, 0)], None),
+                                            ([(63, 0)], 1)])
+def test_profile_kernels_takes_again_a_window_short_or_mixed(monkeypatch, capsys, windows, taken):
+    """The guarded window of chip_smoke.py's profiles: a window that missed
+    all 64 marker kernels on one side of its calls, or held an extra one, is
+    printed and taken again, the calls run anew; after three it raises.
+    Fewer than 64 missing on each side still counts."""
+    seen = iter(windows)
+    calls = []
+
+    def window(fn, args, n, device):
+        for _ in range(n):
+            fn(*args)
+        missing, extra = next(seen)
+        return [_Event("conv_kernel", 0.5 * n, n)], missing, extra
+
+    monkeypatch.setattr(tprof, "_profile_window", window)
+    run = lambda: tprof.profile_kernels(calls.append, 1, n=2)  # noqa: E731
+    if taken is None:
+        with pytest.raises(RuntimeError, match="no whole profiler window in 3"):
+            run()
+        assert len(calls) == 6 and capsys.readouterr().out.count("taking another") == 3
+        return
+    kernels = run()
+    assert [e.key for e in kernels] == ["conv_kernel"] and len(calls) == 2 * taken
+    assert capsys.readouterr().out.count("taking another") == taken - 1
+
+
+class _Record:  # stands in for a FunctionEvent and a key_averages() row of the card
+    def __init__(self, name, start):
+        self.name = self.key = name
+        self.time_range = type("Interval", (), {"start": start})()
+        self.device_type = torch.autograd.DeviceType.CUDA
+        self.count, self.self_device_time_total = 1, 10.0
+
+
+class _Profile:  # stands in for torch.profiler.profile; its window yields ``order``
+    order = ""
+
+    def __init__(self, activities):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def events(self):
+        names = {"M": "spin_kernel", "K": "conv_kernel"}
+        return [_Record(names[c], t) for t, c in enumerate(self.order)]
+
+    def key_averages(self):
+        return self.events()
+
+
+@pytest.mark.parametrize("order, missing, extra", [
+    ("M" * 64 + "KKK" + "M" * 64, 0, 0),  # whole
+    ("M" * 54 + "KKK" + "M" * 64, 10, 0),  # the first records lost: the calls all came
+    ("M" * 10 + "KKK", 64, 0),  # the trailing side lost: the calls' last records may be too
+    ("KKK" + "M" * 128, 64, 0),  # a kernel before the leading markers: another window's
+    ("M" * 64 + "KKK" + "M" * 65, 0, 1),  # an extra marker: another window's
+])
+def test_profile_window_reads_the_markers_on_each_side_of_the_calls(monkeypatch, order, missing, extra):
+    """``_profile_window`` reports, by the records' start times, the markers
+    missing on the side of the calls that lacks more of them, and the extra
+    markers; ``profile_kernels`` retakes a window with ``missing`` 64 (no
+    marker on one side) or any extra."""
+    import torch.profiler
+
+    monkeypatch.setattr(torch.profiler, "profile", _Profile)
+    monkeypatch.setattr(_Profile, "order", order)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: None)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    calls = []
+    kernels, got_missing, got_extra = tprof._profile_window(calls.append, (1,), 2, "cuda")
+    assert (got_missing, got_extra) == (missing, extra) and calls == [1, 1]
+    assert [e.key for e in kernels] == ["conv_kernel"] * 3
+
+
 def test_kernel_groups_match_the_first_group_by_name():
     events = [_Event("void at::native::tile_gather_chw_kernel", 1.0, 2), _Event("sm90_xmma_fprop_implicit_gemm", 6.0, 4),
               _Event("Memcpy HtoD (Pageable -> Device)", 0.5, 2), _Event("some_unknown_kernel", 0.2, 2)]
