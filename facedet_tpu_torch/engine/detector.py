@@ -22,7 +22,6 @@ from __future__ import annotations
 import contextlib
 import copy
 import os
-import time
 from typing import Any, Optional
 
 import numpy as np
@@ -37,6 +36,7 @@ from facedet_tpu_torch.core.letterbox import (
 )
 from facedet_tpu_torch.engine.prediction import detections_to_object_predictions
 from facedet_tpu_torch.models.init import random_init as _random_init
+from facedet_tpu_torch.utils.profiling import SPANS
 
 DEFAULT_CATEGORY_MAPPING = {"0": "face"}
 
@@ -149,29 +149,31 @@ class DetectionModel:
         """Single image/tile inference: letterbox to ``image_size``, forward,
         map back; stores the raw predictions on self. ``image`` is HWC, a
         numpy array or a tensor, which goes to the model's device as it is
-        and is letterboxed there."""
-        t0 = time.perf_counter()
-        if isinstance(image, torch.Tensor):
-            img = image.to(self.device)
-            if img.dtype == torch.uint8:
-                img = img.to(torch.float32) / 255.0
-        else:
-            img = np.asarray(image)
-            if img.dtype == np.uint8:
-                img = img.astype(np.float32) / 255.0
-            img = torch.from_numpy(img).to(self.device)
-        size = self.image_size or max(img.shape[:2])
-        spec = compute_letterbox(img.shape[0], img.shape[1], int(size))
-        tile = apply_letterbox(img, spec)
-        det = self.forward_tiles(tile[None]).map(lambda x: x[0])
-        self._original_predictions = Detections(
-            boxes=unletterbox_boxes(det.boxes, spec),
-            scores=det.scores,
-            classes=det.classes,
-            kpts=unletterbox_kpts(det.kpts, spec),
-            valid=det.valid,
-        )
-        self.durations_in_seconds["prediction"] = time.perf_counter() - t0
+        and is letterboxed there. The call is an ``inference`` span of
+        ``utils.profiling.SPANS``, whose length is
+        ``durations_in_seconds["prediction"]``."""
+        with SPANS.span("inference") as span:
+            if isinstance(image, torch.Tensor):
+                img = image.to(self.device)
+                if img.dtype == torch.uint8:
+                    img = img.to(torch.float32) / 255.0
+            else:
+                img = np.asarray(image)
+                if img.dtype == np.uint8:
+                    img = img.astype(np.float32) / 255.0
+                img = torch.from_numpy(img).to(self.device)
+            size = self.image_size or max(img.shape[:2])
+            spec = compute_letterbox(img.shape[0], img.shape[1], int(size))
+            tile = apply_letterbox(img, spec)
+            det = self.forward_tiles(tile[None]).map(lambda x: x[0])
+            self._original_predictions = Detections(
+                boxes=unletterbox_boxes(det.boxes, spec),
+                scores=det.scores,
+                classes=det.classes,
+                kpts=unletterbox_kpts(det.kpts, spec),
+                valid=det.valid,
+            )
+        self.durations_in_seconds["prediction"] = span.seconds
 
     @property
     def original_predictions(self) -> Optional[Detections]:

@@ -10,11 +10,12 @@ Counterpart of facedet_tpu/engine/pipelines.py:
     whether SR is worth running.
 
 Each pipeline stays on the device from end to end: the enhanced image
-tensor feeds the tile gather directly.
+tensor feeds the tile gather directly. Each call is a ``request`` span of
+``utils.profiling.SPANS``, its enhancement an ``enhance`` span, and the
+sliced detection inside it a child ``request``.
 """
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import numpy as np
@@ -26,6 +27,7 @@ from facedet_tpu_torch.engine.enhancer import FaceEnhancer, image_to_device
 from facedet_tpu_torch.engine.predict import get_sliced_prediction
 from facedet_tpu_torch.engine.prediction import PredictionResult, detections_to_object_predictions
 from facedet_tpu_torch.ops.tiler import fixed_grid_slice_params, half_image_slice_size
+from facedet_tpu_torch.utils.profiling import SPANS
 
 __all__ = [
     "detect_first_pipeline",
@@ -69,28 +71,29 @@ def detect_first_pipeline(
     pc = postprocess_config or PostprocessConfig()
     h, w = image.shape[:2]
     sh, sw, oh, ow = _slice_params(slice_policy, h, w, sc)
-    result = get_sliced_prediction(
-        image,
-        detection_model,
-        slice_height=sh,
-        slice_width=sw,
-        overlap_height_ratio=oh,
-        overlap_width_ratio=ow,
-        perform_standard_pred=sc.perform_standard_pred,
-        postprocess_type=pc.postprocess_type,
-        postprocess_match_metric=pc.postprocess_match_metric,
-        postprocess_match_threshold=pc.postprocess_match_threshold,
-        postprocess_class_agnostic=pc.postprocess_class_agnostic,
-    )
-    stats: dict = {"total": 0, "enhanced": 0, "failed": 0}
-    if enhancer is not None and crops_dir is not None:
-        from facedet_tpu_torch.engine.enhancer import enhance_face_crops_batch
+    with SPANS.span("request"):
+        result = get_sliced_prediction(
+            image,
+            detection_model,
+            slice_height=sh,
+            slice_width=sw,
+            overlap_height_ratio=oh,
+            overlap_width_ratio=ow,
+            perform_standard_pred=sc.perform_standard_pred,
+            postprocess_type=pc.postprocess_type,
+            postprocess_match_metric=pc.postprocess_match_metric,
+            postprocess_match_threshold=pc.postprocess_match_threshold,
+            postprocess_class_agnostic=pc.postprocess_class_agnostic,
+        )
+        stats: dict = {"total": 0, "enhanced": 0, "failed": 0}
+        if enhancer is not None and crops_dir is not None:
+            from facedet_tpu_torch.engine.enhancer import enhance_face_crops_batch
 
-        t0 = time.perf_counter()
-        save_face_crops(image, result.object_prediction_list, crops_dir)
-        out_dir = output_dir or (crops_dir.rstrip("/") + "_enhanced")
-        stats = enhance_face_crops_batch(crops_dir, out_dir, enhancer)
-        result.durations_in_seconds["enhance"] = time.perf_counter() - t0
+            with SPANS.span("enhance") as enhanced:
+                save_face_crops(image, result.object_prediction_list, crops_dir)
+                out_dir = output_dir or (crops_dir.rstrip("/") + "_enhanced")
+                stats = enhance_face_crops_batch(crops_dir, out_dir, enhancer)
+            result.durations_in_seconds["enhance"] = enhanced.seconds
     return result, stats
 
 
@@ -113,55 +116,54 @@ def enhance_first_pipeline(
     sc = slice_config or SliceConfig()
     pc = postprocess_config or PostprocessConfig()
     scale = float(outscale if outscale is not None else enhancer.outscale)
+    with SPANS.span("request"):
+        with SPANS.span("enhance") as enhanced_span:
+            img = np.asarray(image)
+            enhanced = enhancer.enhance_array(image_to_device(img, enhancer.device), outscale=scale)
+            if enhanced.is_cuda:
+                torch.cuda.synchronize(enhanced.device)  # honest enhance timing
 
-    t0 = time.perf_counter()
-    img = np.asarray(image)
-    enhanced = enhancer.enhance_array(image_to_device(img, enhancer.device), outscale=scale)
-    if enhanced.is_cuda:
-        torch.cuda.synchronize(enhanced.device)  # honest enhance timing
-    enhance_dt = time.perf_counter() - t0
+        eh, ew = int(enhanced.shape[0]), int(enhanced.shape[1])
+        sh, sw, oh, ow = _slice_params(slice_policy, eh, ew, sc)
+        # the SR output stays ON THE DEVICE through the sliced detection (a x4
+        # output holds 16x the original pixels: fetching it only to upload the
+        # padded canvas again costs two transfers of the largest tensor in the
+        # system); the single display fetch below doubles as enhanced_image
+        result = get_sliced_prediction(
+            enhanced,
+            detection_model,
+            slice_height=sh,
+            slice_width=sw,
+            overlap_height_ratio=oh,
+            overlap_width_ratio=ow,
+            perform_standard_pred=sc.perform_standard_pred,
+            postprocess_type=pc.postprocess_type,
+            postprocess_match_metric=pc.postprocess_match_metric,
+            postprocess_match_threshold=pc.postprocess_match_threshold,
+            postprocess_class_agnostic=pc.postprocess_class_agnostic,
+        )
 
-    eh, ew = int(enhanced.shape[0]), int(enhanced.shape[1])
-    sh, sw, oh, ow = _slice_params(slice_policy, eh, ew, sc)
-    # the SR output stays ON THE DEVICE through the sliced detection (a x4
-    # output holds 16x the original pixels: fetching it only to upload the
-    # padded canvas again costs two transfers of the largest tensor in the
-    # system); the single display fetch below doubles as enhanced_image
-    result = get_sliced_prediction(
-        enhanced,
-        detection_model,
-        slice_height=sh,
-        slice_width=sw,
-        overlap_height_ratio=oh,
-        overlap_width_ratio=ow,
-        perform_standard_pred=sc.perform_standard_pred,
-        postprocess_type=pc.postprocess_type,
-        postprocess_match_metric=pc.postprocess_match_metric,
-        postprocess_match_threshold=pc.postprocess_match_threshold,
-        postprocess_class_agnostic=pc.postprocess_class_agnostic,
-    )
-
-    # map detections back to original coordinates (divide by scale)
-    det = result.detections
-    h, w = img.shape[:2]
-    kpts = det.kpts.clone()
-    kpts[..., :2] /= scale
-    det = Detections(
-        boxes=(det.boxes / scale).clamp(0, max(h, w)),
-        scores=det.scores,
-        classes=det.classes,
-        kpts=kpts,
-        valid=det.valid,
-    )
-    preds = detections_to_object_predictions(det, detection_model.category_mapping, full_shape=(h, w))
-    out = PredictionResult(
-        image=img,
-        object_prediction_list=preds,
-        durations_in_seconds={**result.durations_in_seconds, "enhance": enhance_dt},
-        detections=det,
-    )
-    out.enhanced_image = result.image  # type: ignore[attr-defined]
-    return out
+        # map detections back to original coordinates (divide by scale)
+        det = result.detections
+        h, w = img.shape[:2]
+        kpts = det.kpts.clone()
+        kpts[..., :2] /= scale
+        det = Detections(
+            boxes=(det.boxes / scale).clamp(0, max(h, w)),
+            scores=det.scores,
+            classes=det.classes,
+            kpts=kpts,
+            valid=det.valid,
+        )
+        preds = detections_to_object_predictions(det, detection_model.category_mapping, full_shape=(h, w))
+        out = PredictionResult(
+            image=img,
+            object_prediction_list=preds,
+            durations_in_seconds={**result.durations_in_seconds, "enhance": enhanced_span.seconds},
+            detections=det,
+        )
+        out.enhanced_image = result.image  # type: ignore[attr-defined]
+        return out
 
 
 def quick_face_analysis(

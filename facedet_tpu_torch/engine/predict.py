@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import contextlib
 import itertools
-import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
@@ -68,6 +67,7 @@ from facedet_tpu_torch.ops.tiler import (
     compute_slice_grid,
     pad_grid_offsets,
 )
+from facedet_tpu_torch.utils.profiling import SPANS
 
 __all__ = [
     "get_prediction",
@@ -191,38 +191,45 @@ def _pipeline(detection_model: DetectionModel, plan: dict, image, consts, forwar
     merged, clipped and compacted detections, still on the device.
     ``forward`` replaces the detector's ``tile_forward_nchw`` over the tile
     batch (the tile-sharded forward of a mesh); the standard pass always
-    runs the detector's own."""
+    runs the detector's own. Spans: ``ingest``, ``gather``,
+    ``forward.tiles``, ``forward.full`` (the standard pass with its
+    letterbox) and ``merge``."""
     offsets, tile_valid, true_hw = consts
     sh, sw = plan["slice_height"], plan["slice_width"]
     conf = plan["conf"]
-    canvas = decode_canvas(image, plan["input_format"], plan["bucket_h"], plan["bucket_w"], plan["canvas_dtype"])
+    with SPANS.span("ingest"):
+        canvas = decode_canvas(image, plan["input_format"], plan["bucket_h"], plan["bucket_w"], plan["canvas_dtype"])
     lead = canvas.shape[:-3]
     t = offsets.shape[0]
-    # one gather launch for the chunk: [c*T, 3, S, S], image-major
-    tiles = gather_tiles_chw(canvas, offsets, sh, sw)
-    det = (forward or detection_model.tile_forward_nchw)(tiles, conf)
+    with SPANS.span("gather"):
+        # one gather launch for the chunk: [c*T, 3, S, S], image-major
+        tiles = gather_tiles_chw(canvas, offsets, sh, sw)
+    with SPANS.span("forward.tiles"):
+        det = (forward or detection_model.tile_forward_nchw)(tiles, conf)
     det = det.map(lambda x: x.reshape(*lead, t, *x.shape[1:]))
     parts = [_shift_and_flatten(det, offsets, tile_valid)]
     if plan["standard"]:
-        full_tiles, scale = letterbox_full(canvas, true_hw, plan["img_size"])
-        full = detection_model.tile_forward_nchw(full_tiles.reshape(-1, *full_tiles.shape[-3:]), conf)
+        with SPANS.span("forward.full"):
+            full_tiles, scale = letterbox_full(canvas, true_hw, plan["img_size"])
+            full = detection_model.tile_forward_nchw(full_tiles.reshape(-1, *full_tiles.shape[-3:]), conf)
         full = full.map(lambda x: x.reshape(*lead, *x.shape[1:]))
         kpts = full.kpts.clone()
         kpts[..., :2] /= scale
         parts.append(Detections(full.boxes / scale, full.scores, full.classes, kpts, full.valid))
-    combined = concat_detections(parts, plan["merge_capacity"])
-    merged = merge_detections(
-        combined,
-        mode=plan["postprocess_type"],
-        match_metric=plan["postprocess_match_metric"],
-        match_threshold=plan["postprocess_match_threshold"],
-        class_agnostic=plan["postprocess_class_agnostic"],
-    )
-    merged = _clip_detections(merged, plan["h"], plan["w"])
-    fetch = plan["fetch_capacity"]
-    if fetch and fetch < plan["merge_capacity"]:
-        # serving compaction: only the top rows leave the device
-        merged = _truncate_by_score(merged, fetch)
+    with SPANS.span("merge"):
+        combined = concat_detections(parts, plan["merge_capacity"])
+        merged = merge_detections(
+            combined,
+            mode=plan["postprocess_type"],
+            match_metric=plan["postprocess_match_metric"],
+            match_threshold=plan["postprocess_match_threshold"],
+            class_agnostic=plan["postprocess_class_agnostic"],
+        )
+        merged = _clip_detections(merged, plan["h"], plan["w"])
+        fetch = plan["fetch_capacity"]
+        if fetch and fetch < plan["merge_capacity"]:
+            # serving compaction: only the top rows leave the device
+            merged = _truncate_by_score(merged, fetch)
     return merged
 
 
@@ -543,9 +550,12 @@ def _resident_grid_consts(detection_model: DetectionModel, plan: dict, device: t
 class _Fetch:
     """A device result on its way to the host. On a CUDA device the copy
     goes into pinned memory without blocking, behind an event on the stream
-    that computed the result; ``result()`` waits on that event alone."""
+    that computed the result; ``result()`` waits on that event alone, in a
+    ``fetch_wait`` span of the request that made the fetch (``wait``)."""
 
     def __init__(self, det: Detections):
+        self._request = SPANS.current_request()
+        self.wait = None
         self._event = None
         if det.scores.device.type == "cuda":
             self._host = det.map(
@@ -557,8 +567,9 @@ class _Fetch:
             self._host = det
 
     def result(self) -> Detections:
-        if self._event is not None:
-            self._event.synchronize()
+        with SPANS.span("fetch_wait", self._request) as self.wait:
+            if self._event is not None:
+                self._event.synchronize()
         return self._host
 
 
@@ -674,36 +685,46 @@ def _sharded_forward(detection_model: DetectionModel, mesh):
 
 def _dispatch_sliced(img, detection_model: DetectionModel, opts: dict):
     """Enqueue the sliced pipeline for one image and start the copy of its
-    result to the host. Returns (the pending fetch, the plan, durations):
-    callers keep several images in flight (``predict_stream``) before they
-    wait on a result. With ``opts["mesh"]`` every rank of the mesh must call
-    it with the same image (SPMD); each gets the whole result."""
+    result to the host, in spans of the request open on this thread:
+    ``plan``, ``stage`` (the host padding, or the pad on the device of a
+    tensor input), ``upload`` and ``_pipeline``'s. Returns (the pending
+    fetch, the plan, the ``plan`` span): callers keep several images in
+    flight (``predict_stream``) before they wait on a result. With
+    ``opts["mesh"]`` every rank of the mesh must call it with the same image
+    (SPMD); each gets the whole result."""
     mesh = opts.get("mesh")
     forward = None if mesh is None else _sharded_forward(detection_model, mesh)
     h, w = _image_hw(img)
-    durations: dict[str, float] = {}
-    t0 = time.perf_counter()
-    plan = _plan(h, w, None, detection_model, opts)
-    durations["slice"] = time.perf_counter() - t0
+    with SPANS.span("plan") as planned:
+        plan = _plan(h, w, None, detection_model, opts)
 
-    t0 = time.perf_counter()
     device = detection_model.device
     fmt = plan["input_format"]
     with torch.inference_mode(), _exact_float32(plan["canvas_dtype"] == torch.float32):
         if isinstance(img, torch.Tensor):
             if fmt != "rgb":
                 raise ValueError("a tensor input is an RGB image: input_format must be 'rgb'")
-            # already on a device: pad there, no trip through the host
-            dev = torch.nn.functional.pad(
-                img.to(device), (0, 0, 0, plan["bucket_w"] - w, 0, plan["bucket_h"] - h)
-            )
+            with SPANS.span("stage"):
+                # already on a device: pad there, no trip through the host
+                dev = torch.nn.functional.pad(
+                    img.to(device), (0, 0, 0, plan["bucket_w"] - w, 0, plan["bucket_h"] - h)
+                )
         else:
-            staged = _stage_single_host(img, fmt, plan["bucket_h"], plan["bucket_w"])
-            dev = tuple(_to_device(a, device) for a in staged) if isinstance(staged, tuple) else _to_device(staged, device)
+            with SPANS.span("stage"):
+                staged = _stage_single_host(img, fmt, plan["bucket_h"], plan["bucket_w"])
+            with SPANS.span("upload"):
+                dev = (tuple(_to_device(a, device) for a in staged) if isinstance(staged, tuple)
+                       else _to_device(staged, device))
         consts = _resident_grid_consts(detection_model, plan, device)
         fetch = _Fetch(_pipeline(detection_model, plan, dev, consts, forward))
-    durations["prediction"] = time.perf_counter() - t0
-    return fetch, plan, durations
+    return fetch, plan, planned
+
+
+def _durations(planned, fetch: _Fetch) -> dict[str, float]:
+    """A request's ``durations_in_seconds`` from its spans: ``slice`` is the
+    ``plan`` span, ``prediction`` runs from the plan's end to the result on
+    the host (the end of the fetch's ``fetch_wait``)."""
+    return {"slice": planned.seconds, "prediction": (fetch.wait.end_ns - planned.end_ns) / 1e9}
 
 
 def get_prediction(
@@ -720,18 +741,19 @@ def get_prediction(
     img = _prepare_image(image)
     if isinstance(img, (DctImage, tuple)):
         raise ValueError("get_prediction takes an RGB image; the other formats need the sliced path")
-    t0 = time.perf_counter()
-    detection_model.perform_inference(img)
-    dt = time.perf_counter() - t0
-    detection_model.convert_original_predictions(
-        shift_amount=shift_amount,
-        full_shape=full_shape if full_shape is not None else tuple(img.shape[:2]),
-    )
-    return PredictionResult(
-        image=_display_image(img),
-        object_prediction_list=detection_model.object_prediction_list,
-        durations_in_seconds={"prediction": dt},
-    )
+    with SPANS.span("request"):
+        # the result reaches the host inside the conversion
+        with SPANS.span("predict") as predicted:
+            detection_model.perform_inference(img)
+            detection_model.convert_original_predictions(
+                shift_amount=shift_amount,
+                full_shape=full_shape if full_shape is not None else tuple(img.shape[:2]),
+            )
+        return PredictionResult(
+            image=_display_image(img),
+            object_prediction_list=detection_model.object_prediction_list,
+            durations_in_seconds={"prediction": predicted.seconds},
+        )
 
 
 def get_sliced_prediction(
@@ -766,42 +788,46 @@ def get_sliced_prediction(
 
     ``mesh``: a ``DeviceMesh`` (parallel/mesh.create_mesh) whose ranks all
     call this with the same image and options; the tile batch splits over
-    its ``tile`` axis, and every rank returns the same result."""
-    if merge_buffer_length is not None:
-        merge_capacity = min(merge_capacity, max(int(merge_buffer_length), 64))
-    img = _prepare_image(image)
-    opts = _stream_opts(dict(
-        slice_height=slice_height, slice_width=slice_width,
-        overlap_height_ratio=overlap_height_ratio, overlap_width_ratio=overlap_width_ratio,
-        perform_standard_pred=perform_standard_pred, postprocess_type=postprocess_type,
-        postprocess_match_metric=postprocess_match_metric,
-        postprocess_match_threshold=postprocess_match_threshold,
-        postprocess_class_agnostic=postprocess_class_agnostic,
-        auto_slice_resolution=auto_slice_resolution, merge_capacity=merge_capacity,
-        input_format=input_format, fetch_capacity=fetch_capacity,
-    ))
-    opts["mesh"] = mesh
-    fetch, plan, durations = _dispatch_sliced(img, detection_model, opts)
-    t0 = time.perf_counter()
-    merged = fetch.result()
-    durations["prediction"] += time.perf_counter() - t0
-    durations["postprocess"] = 0.0  # merged on the device inside the pipeline
+    its ``tile`` axis, and every rank returns the same result.
 
-    preds = detections_to_object_predictions(
-        merged, detection_model.category_mapping, full_shape=(plan["h"], plan["w"])
-    )
-    if verbose:
-        print(
-            f"Performing prediction on {plan['grid'].num_tiles} slices "
-            f"(bucket {plan['t_bucket']}, {plan['slice_height']}x{plan['slice_width']}): "
-            + ", ".join(f"{k}={v:.3f}s" for k, v in durations.items())
+    The call is a ``request`` span (a child of the request open on this
+    thread, as in ``enhance_first_pipeline``, else a new request's first
+    span); ``durations_in_seconds`` comes from its spans (``_durations``)."""
+    with SPANS.span("request"):
+        if merge_buffer_length is not None:
+            merge_capacity = min(merge_capacity, max(int(merge_buffer_length), 64))
+        img = _prepare_image(image)
+        opts = _stream_opts(dict(
+            slice_height=slice_height, slice_width=slice_width,
+            overlap_height_ratio=overlap_height_ratio, overlap_width_ratio=overlap_width_ratio,
+            perform_standard_pred=perform_standard_pred, postprocess_type=postprocess_type,
+            postprocess_match_metric=postprocess_match_metric,
+            postprocess_match_threshold=postprocess_match_threshold,
+            postprocess_class_agnostic=postprocess_class_agnostic,
+            auto_slice_resolution=auto_slice_resolution, merge_capacity=merge_capacity,
+            input_format=input_format, fetch_capacity=fetch_capacity,
+        ))
+        opts["mesh"] = mesh
+        fetch, plan, planned = _dispatch_sliced(img, detection_model, opts)
+        merged = fetch.result()
+        durations = _durations(planned, fetch)
+        durations["postprocess"] = 0.0  # merged on the device inside the pipeline
+
+        preds = detections_to_object_predictions(
+            merged, detection_model.category_mapping, full_shape=(plan["h"], plan["w"])
         )
-    return PredictionResult(
-        image=_display_image(img) if return_image else None,
-        object_prediction_list=preds,
-        durations_in_seconds=durations,
-        detections=merged,
-    )
+        if verbose:
+            print(
+                f"Performing prediction on {plan['grid'].num_tiles} slices "
+                f"(bucket {plan['t_bucket']}, {plan['slice_height']}x{plan['slice_width']}): "
+                + ", ".join(f"{k}={v:.3f}s" for k, v in durations.items())
+            )
+        return PredictionResult(
+            image=_display_image(img) if return_image else None,
+            object_prediction_list=preds,
+            durations_in_seconds=durations,
+            detections=merged,
+        )
 
 
 def predict_stream(
@@ -816,11 +842,17 @@ def predict_stream(
     Keeps up to ``window`` images in flight: the next images' staging,
     uploads and device work overlap the current image's copy to the host.
     Yields a ``PredictionResult`` per image, in input order (or the merged
-    ``Detections`` on the host when ``raw=True``).
+    ``Detections`` on the host when ``raw=True``). Each image is a
+    ``request`` span over its dispatch, and its ``fetch_wait`` joins that
+    request when its turn comes.
     """
     opts = _stream_opts(sliced_kwargs)
 
-    def finalize(img, fetch, plan, durations):
+    def dispatch(img):
+        with SPANS.span("request"):
+            return _dispatch_sliced(img, detection_model, opts)
+
+    def finalize(img, fetch, plan, planned):
         merged = fetch.result()
         if raw:
             return merged
@@ -830,14 +862,14 @@ def predict_stream(
         return PredictionResult(
             image=_display_image(img),
             object_prediction_list=preds,
-            durations_in_seconds=durations,
+            durations_in_seconds=_durations(planned, fetch),
             detections=merged,
         )
 
     inflight: deque = deque()
     for image in images:
         img = _prepare_image(image)
-        inflight.append((img, *_dispatch_sliced(img, detection_model, opts)))
+        inflight.append((img, *dispatch(img)))
         if len(inflight) >= window:
             yield finalize(*inflight.popleft())
     while inflight:
@@ -860,28 +892,34 @@ def _plan_sliced_batch(imgs: list, detection_model: DetectionModel, opts: dict) 
 
 
 def _dispatch_staged_batch(plan: dict, staged, detection_model: DetectionModel,
-                           slot: Optional[_StagingSlot] = None) -> _Fetch:
+                           slot: Optional[_StagingSlot] = None, request: Optional[int] = None) -> _Fetch:
     """Upload a host-staged batch, enqueue the batch pipeline and start the
-    copy of its result (batch axis leading) to the host. With a staging
-    ``slot`` the upload runs on the slot's copy stream from pinned memory."""
+    copy of its result (batch axis leading) to the host, in the spans
+    ``upload`` and ``enqueue`` of ``request`` (default: the request open on
+    this thread). With a staging ``slot`` the upload runs on the slot's copy
+    stream from pinned memory."""
     device = detection_model.device
     with torch.inference_mode(), _exact_float32(plan["canvas_dtype"] == torch.float32), _on_device(device):
-        if slot is not None:
-            batch_dev = slot.upload(staged)
-        elif isinstance(staged, tuple):
-            batch_dev = tuple(_to_device(a, device) for a in staged)
-        else:
-            batch_dev = _to_device(staged, device)
-        consts = _resident_grid_consts(detection_model, plan, device)
-        return _Fetch(batch_core(detection_model, plan, batch_dev, consts))
+        with SPANS.span("upload", request):
+            if slot is not None:
+                batch_dev = slot.upload(staged)
+            elif isinstance(staged, tuple):
+                batch_dev = tuple(_to_device(a, device) for a in staged)
+            else:
+                batch_dev = _to_device(staged, device)
+        with SPANS.span("enqueue", request):
+            consts = _resident_grid_consts(detection_model, plan, device)
+            return _Fetch(batch_core(detection_model, plan, batch_dev, consts))
 
 
 def _dispatch_sliced_batch(imgs: list, detection_model: DetectionModel, opts: dict) -> _Fetch:
     """Plan + stage + upload + dispatch in one call (the non-streamed batch
     path). The streamed path runs the phases on separate threads: see
     ``predict_stream_batched``."""
-    plan = _plan_sliced_batch(imgs, detection_model, opts)
-    staged = _stage_batch_host(imgs, plan["input_format"], plan["bucket_h"], plan["bucket_w"])
+    with SPANS.span("plan"):
+        plan = _plan_sliced_batch(imgs, detection_model, opts)
+    with SPANS.span("stage"):
+        staged = _stage_batch_host(imgs, plan["input_format"], plan["bucket_h"], plan["bucket_w"])
     return _dispatch_staged_batch(plan, staged, detection_model)
 
 
@@ -909,8 +947,9 @@ def get_sliced_prediction_batch(
     imgs = [_prepare_image(im) for im in images]
     if not imgs:
         return []
-    merged = _dispatch_sliced_batch(imgs, detection_model, _stream_opts(sliced_kwargs)).result()
-    return merged if raw else _batch_results(imgs, merged, detection_model)
+    with SPANS.span("request"):
+        merged = _dispatch_sliced_batch(imgs, detection_model, _stream_opts(sliced_kwargs)).result()
+        return merged if raw else _batch_results(imgs, merged, detection_model)
 
 
 def predict_stream_batched(
@@ -936,6 +975,12 @@ def predict_stream_batched(
     of ``PredictionResult`` (or the batched ``Detections`` on the host when
     ``raw=True``). An exception in a worker is raised here, when its batch's
     turn comes.
+
+    Each batch is one request of ``SPANS``, its id passed to the workers:
+    ``stage`` on the stage worker, ``upload`` and ``enqueue`` (with
+    ``_pipeline``'s spans under it) on the dispatch worker, ``fetch_wait``
+    on the caller's thread. Which of the three threads holds the stream back
+    shows in their spans.
 
     ``devices`` turns on serving over several devices: a list of devices
     (``torch.device`` or names), or a ``DeviceMesh``, which stands for the
@@ -966,11 +1011,13 @@ def predict_stream_batched(
         merged = fut.result().result()
         return merged if raw else _batch_results(imgs, merged, detection_model)
 
-    def stage(pending, plan, slot):
-        if slot is None:
-            return _stage_batch_host(pending, plan["input_format"], plan["bucket_h"], plan["bucket_w"])
-        slot.begin()
-        return _stage_batch_host(pending, plan["input_format"], plan["bucket_h"], plan["bucket_w"], alloc=slot.alloc)
+    def stage(pending, plan, slot, request):
+        with SPANS.span("stage", request):
+            if slot is None:
+                return _stage_batch_host(pending, plan["input_format"], plan["bucket_h"], plan["bucket_w"])
+            slot.begin()
+            return _stage_batch_host(pending, plan["input_format"], plan["bucket_h"], plan["bucket_w"],
+                                     alloc=slot.alloc)
 
     inflight: deque = deque()
     pending: list = []
@@ -985,9 +1032,10 @@ def predict_stream_batched(
         plan = _plan_sliced_batch(pending, target, opts)
         ring = rings.get(str(target.device))
         slot = next(ring) if ring else None
-        staged_fut = stage_pool.submit(stage, pending, plan, slot)
+        request = SPANS.new_request()
+        staged_fut = stage_pool.submit(stage, pending, plan, slot, request)
         fut = dispatch_pool.submit(
-            lambda: _dispatch_staged_batch(plan, staged_fut.result(), target, slot=slot)
+            lambda: _dispatch_staged_batch(plan, staged_fut.result(), target, slot=slot, request=request)
         )
         inflight.append((pending, fut))
 

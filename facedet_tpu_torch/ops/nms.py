@@ -10,6 +10,10 @@ min/max reduction.
 
 Every function takes an optional leading batch axis (``[B, N, ...]``), which
 runs B independent merges; the loop ends when all of them have converged.
+
+Each fixpoint is an ``nms`` span of ``utils.profiling.SPANS``, with a
+``readback`` span around each round's wait for its flag and the counter
+``nms_rounds`` (one per round, so one per blocking read-back).
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import torch
 
 from facedet_tpu_torch.core.boxes import pair_metric_matrix
 from facedet_tpu_torch.core.detections import Detections
+from facedet_tpu_torch.utils.profiling import SPANS
 
 __all__ = ["merge_detections", "nms", "greedy_keep_mask", "POSTPROCESS_TYPES"]
 
@@ -30,15 +35,19 @@ def greedy_keep_mask(match: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
     match: [..., N, N] bool, True where row i (higher score) suppresses
     column j. valid: [..., N] bool. Returns kept [..., N] bool."""
-    matchf_t = match.to(torch.float32).transpose(-1, -2)
-    kept = valid
-    while True:
-        suppressed = torch.matmul(matchf_t, kept.to(torch.float32)[..., None])[..., 0] > 0.0
-        new_kept = valid & ~suppressed
-        changed = bool((new_kept != kept).any())
-        kept = new_kept
-        if not changed:
-            return kept
+    with SPANS.span("nms") as span:
+        matchf_t = match.to(torch.float32).transpose(-1, -2)
+        kept = valid
+        while True:
+            suppressed = torch.matmul(matchf_t, kept.to(torch.float32)[..., None])[..., 0] > 0.0
+            new_kept = valid & ~suppressed
+            flag = (new_kept != kept).any()
+            with SPANS.span("readback"):
+                changed = bool(flag)
+            span.add("nms_rounds")
+            kept = new_kept
+            if not changed:
+                return kept
 
 
 def merge_detections(

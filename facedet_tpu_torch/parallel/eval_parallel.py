@@ -36,6 +36,7 @@ def predict_stream_multidevice(
     it lies on the CPU); the detector is replicated once per device."""
     from facedet_tpu_torch.engine.predict import _dispatch_sliced, _prepare_image, _replica
     from facedet_tpu_torch.engine.prediction import PredictionResult, detections_to_object_predictions
+    from facedet_tpu_torch.utils.profiling import SPANS
 
     devices = [torch.device(d) for d in (devices or _default_devices(detection_model))]
     n_dev = len(devices)
@@ -70,7 +71,8 @@ def predict_stream_multidevice(
 
     for i, image in enumerate(images):
         img = _prepare_image(image)
-        fetch, _plan, _durations = _dispatch_sliced(img, replicas[i % n_dev], opts)
+        with SPANS.span("request"):  # the dispatch; the fetch's wait joins it by id
+            fetch = _dispatch_sliced(img, replicas[i % n_dev], opts)[0]
         inflight.append((img, fetch))
         if len(inflight) >= window_per_device * n_dev:
             yield finalize(*inflight.popleft())

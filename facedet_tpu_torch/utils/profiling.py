@@ -13,6 +13,15 @@ no such constant, and the difference between a call's wall time and its
 device time is the host's share, which the paths that launch many small
 kernels are bound by.
 
+``SPANS`` is the program's span and counter recorder: the engine opens a
+span at each stage of a request (``engine/predict.py``,
+``engine/pipelines.py``, ``ops/nms.py``), and every closed span goes into a
+bounded ring in memory. A span reads ``time.perf_counter_ns`` twice and
+makes no CUDA call, so the ring is always on; ``durations_in_seconds`` and
+``Stopwatch`` are computed from spans. While ``trace()`` is open each span
+is also a ``torch.profiler.record_function`` range, so the exported trace
+names the stages on the profiler's own clock.
+
 ``flops_and_params`` counts with ``torch.utils.flop_counter.FlopCounterMode``:
 torch's count, which is not XLA's cost analysis. It counts the matmuls and
 convolutions (two FLOPs per multiply-add) and nothing elementwise, where XLA
@@ -21,15 +30,24 @@ for one model differ.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import os
+import threading
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+_clock_ns = time.perf_counter_ns
+_thread_id = threading.get_ident
+
 __all__ = [
+    "SPANS",
+    "Span",
+    "SpanRecorder",
     "PROFILE_GROUPS",
     "kernel_groups",
     "device_time",
@@ -46,21 +64,118 @@ __all__ = [
 ]
 
 
+class Span:
+    """One stage of one request on one thread: ``name``, the ``request`` id
+    it shares with every span of its request, the ``parent`` span (None for
+    a request's first span, or a worker's span joined by id), the
+    ``thread`` and ``start_ns`` / ``end_ns`` from ``time.perf_counter_ns``.
+    ``counts`` holds the counters added at this span (``add``). A span
+    opened on a thread with no span open (a root) records in ``profiled``
+    whether a ``torch.profiler`` was recording then, which stretches its
+    host time; None on other spans. Made by ``SpanRecorder.span``; entered
+    once, as a context manager."""
+
+    __slots__ = ("name", "request", "parent", "thread", "start_ns", "end_ns", "counts", "profiled", "_rec", "_rf")
+
+    def __init__(self, rec: "SpanRecorder", name: str, request: Optional[int]):
+        self._rec, self.name, self.request = rec, name, request
+        self.parent = self.counts = self.profiled = self._rf = None
+
+    def __enter__(self) -> "Span":
+        rec = self._rec
+        self.thread = tid = _thread_id()
+        stack = rec._stacks.get(tid)
+        if stack:
+            top = stack[-1]
+            if self.request is None:  # the enclosing span's request
+                self.request = top.request
+            if top.request == self.request:
+                self.parent = top
+        else:
+            if stack is None:
+                stack = rec._stacks[tid] = []
+            if self.request is None:  # a new request
+                self.request = next(rec._ids)
+            self.profiled = torch.autograd.profiler._is_profiler_enabled
+        stack.append(self)
+        if rec.tracing:
+            self._rf = torch.autograd.profiler.record_function(self.name)
+            self._rf.__enter__()
+        self.start_ns = _clock_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.end_ns = _clock_ns()
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+            self._rf = None
+        rec = self._rec
+        stack = rec._stacks[self.thread]
+        stack.pop()
+        if not stack:
+            del rec._stacks[self.thread]
+        rec.ring.append(self)
+
+    def add(self, counter: str, n: int = 1) -> None:
+        """Add ``n`` to this span's counter ``counter``."""
+        if self.counts is None:
+            self.counts = {}
+        self.counts[counter] = self.counts.get(counter, 0) + n
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e9
+
+
+class SpanRecorder:
+    """Spans and counters of the program's requests, the last ``capacity``
+    closed spans kept in ``ring`` (oldest first). A span opened with no
+    ``request`` joins the request of the innermost span open on its thread,
+    or starts a new request; a span of a worker thread joins a request by
+    its id (``new_request``, ``current_request``). ``tracing`` is set while
+    ``trace()`` is open: each span is then a ``torch.profiler`` range too."""
+
+    def __init__(self, capacity: int = 65536):
+        self.ring: collections.deque = collections.deque(maxlen=capacity)
+        self.tracing = False
+        self._ids = itertools.count(1)
+        self._stacks: dict[int, list] = {}  # thread -> its open spans, innermost last
+
+    def span(self, name: str, request: Optional[int] = None) -> Span:
+        return Span(self, name, request)
+
+    def new_request(self) -> int:
+        """A request id for spans that several threads open."""
+        return next(self._ids)
+
+    def current_request(self) -> Optional[int]:
+        """The request of the innermost span open on this thread, or None."""
+        stack = self._stacks.get(_thread_id())
+        return stack[-1].request if stack else None
+
+    def spans(self) -> list:
+        """The ring's spans, oldest first."""
+        return list(self.ring)
+
+
+SPANS = SpanRecorder()
+
+
 class Stopwatch:
-    """Accumulating phase timer producing a durations_in_seconds dict."""
+    """Accumulating phase timer producing a durations_in_seconds dict: each
+    phase is a span of ``SPANS``."""
 
     def __init__(self):
         self.durations: dict[str, float] = {}
 
     @contextlib.contextmanager
     def phase(self, name: str):
-        t0 = time.perf_counter()
+        span = SPANS.span(name)
         try:
-            yield
+            with span:
+                yield
         finally:
-            self.durations[name] = self.durations.get(name, 0.0) + (
-                time.perf_counter() - t0
-            )
+            self.durations[name] = self.durations.get(name, 0.0) + span.seconds
 
 
 def flops_and_params(fn: Callable, *example_args, params=None) -> dict:
@@ -131,7 +246,7 @@ def trace(log_dir: str | None = None):
     """``torch.profiler`` over the region (the card's kernels too where it
     is in use), written as a Chrome trace ``trace.json`` into ``log_dir``
     (default: ``torch-trace`` in the temporary directory); yields the
-    directory."""
+    directory. Inside it every span of ``SPANS`` is a range of the trace."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -141,8 +256,13 @@ def trace(log_dir: str | None = None):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+    was = SPANS.tracing
     with profile(activities=activities) as prof:
-        yield log_dir
+        SPANS.tracing = True
+        try:
+            yield log_dir
+        finally:
+            SPANS.tracing = was
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
