@@ -16,13 +16,21 @@ Weights: ``model_path`` is a ``.npz`` of flat flax variables (the JAX
 package's checkpoints, carried over by models/from_jax.py; an int8 tree of
 models/quantize.py too), an ultralytics ``.pt`` (models/convert.py) or
 ``None`` for a random init from a seeded ``torch.Generator``.
+
+CUDA graphs: on the card, ``YoloV11PoseDetectionModel.tile_forward_nchw``
+replays its pre-NMS chain (the forward, the decode and the top-k) from one
+``torch.cuda.CUDAGraph`` per tile shape (``ForwardGraphs``), and runs the
+per-tile NMS, whose rounds read back to the host, eagerly on the graph's
+outputs.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import os
-from typing import Any, Optional
+import threading
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -78,6 +86,125 @@ def _tensors_to(tree, device):
     return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
+def graph_key(tiles: torch.Tensor, conf_threshold: float, max_detections: int) -> tuple:
+    """What a captured pre-NMS chain bakes in: the tiles' shape, strides,
+    dtype and device, the confidence threshold and the top-k's size."""
+    return (tuple(tiles.shape), tiles.stride(), tiles.dtype, tiles.device, float(conf_threshold),
+            int(max_detections))
+
+
+class _Graph:
+    """One captured chain: its static input, the graph, its static outputs."""
+
+    def __init__(self, graph, tiles: torch.Tensor, out):
+        self.graph, self.tiles, self.out = graph, tiles, out
+
+    def __call__(self, tiles: torch.Tensor):
+        self.tiles.copy_(tiles)
+        self.graph.replay()
+        return self.out
+
+
+class ForwardGraphs:
+    """The CUDA graphs of one detector's pre-NMS chain, by ``graph_key``.
+
+    A key's first call warms the chain up eagerly on a side stream (cuDNN's
+    plans, the allocator's growth, cuBLAS's workspace on that stream),
+    captures it there into the detector's one memory pool with
+    ``capture_error_mode="thread_local"`` (another thread may be copying on
+    its own stream meanwhile), then replays it; later calls copy the tiles
+    into the static input and replay. A key whose capture raises runs
+    eagerly for the life of the cache. At most ``MAX_KEYS`` graphs are
+    kept: the least recently used is dropped, which frees it. All graphs
+    hold the weights of one model by pointer, so a call for another model
+    object empties the cache first, and the owner empties it where it
+    replaces modules inside its model.
+
+    ``__call__`` holds ``lock`` until the caller's ``post`` returns, for
+    the graph's outputs are overwritten by its next replay; ``post`` must
+    return tensors of its own. A copy or a pickle of the cache is a new,
+    empty one."""
+
+    MAX_KEYS = 8
+
+    def __init__(self, capture: Optional[Callable] = None):
+        self.lock = threading.Lock()
+        self._capture = capture or self._capture_cuda
+        self._graphs: collections.OrderedDict = collections.OrderedDict()
+        self._eager: set = set()
+        self._model = None
+        self._pool = None
+
+    def __reduce__(self):
+        return ForwardGraphs, ()
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def keys(self) -> list:
+        """The kept keys, least recently used first."""
+        return list(self._graphs)
+
+    def clear(self) -> None:
+        self._graphs.clear()
+        self._eager.clear()
+        self._model = None
+
+    def __call__(self, model, pre: Callable, tiles: torch.Tensor, key: Optional[tuple], post: Callable):
+        """``post(pre(tiles))``, ``pre`` run inside a ``detector`` span of
+        ``SPANS`` that counts one of ``graph_replays`` (replayed),
+        ``graph_captures`` (captured, then replayed) or ``graph_eager`` (run
+        eagerly: ``key`` is None, or its capture failed). ``model`` is the
+        module whose weights ``pre`` reads."""
+        with self.lock:
+            with SPANS.span("detector") as span:
+                out = self._pre(model, pre, tiles, key, span)
+            return post(out)
+
+    def _pre(self, model, pre, tiles, key, span):
+        if key is not None and model is not self._model:
+            self.clear()
+            self._model = model
+        if key is None or key in self._eager:
+            span.add("graph_eager")
+            return pre(tiles)
+        graph = self._graphs.get(key)
+        if graph is not None:
+            self._graphs.move_to_end(key)
+            span.add("graph_replays")
+            return graph(tiles)
+        try:
+            graph = self._capture(pre, tiles)
+        except RuntimeError:
+            self._eager.add(key)
+            span.add("graph_eager")
+            return pre(tiles)
+        self._graphs[key] = graph
+        if len(self._graphs) > self.MAX_KEYS:
+            self._graphs.popitem(last=False)
+        span.add("graph_captures")
+        return graph(tiles)
+
+    def _capture_cuda(self, pre: Callable, tiles: torch.Tensor) -> _Graph:
+        device = tiles.device
+        with torch.cuda.device(device):
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            current, side = torch.cuda.current_stream(device), torch.cuda.Stream(device)
+            static = torch.empty_like(tiles).copy_(tiles)
+            side.wait_stream(current)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(side):
+                pre(static)
+                graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
+                try:
+                    out = pre(static)
+                finally:
+                    graph.capture_end()
+            current.wait_stream(side)
+        return _Graph(graph, static, out)
+
+
 class DetectionModel:
     """Base detector. Subclasses implement ``load_model`` and
     ``tile_forward_nchw``."""
@@ -103,6 +230,7 @@ class DetectionModel:
         self._original_predictions: Optional[Detections] = None
         self._object_prediction_list: list = []
         self.durations_in_seconds: dict[str, float] = {}
+        self.forward_graphs = ForwardGraphs()
         if load_at_init:
             self.load_model()
 
@@ -115,14 +243,17 @@ class DetectionModel:
 
     def unload_model(self) -> None:
         self.model = None
+        self.forward_graphs.clear()
 
     def replica(self, device) -> "DetectionModel":
         """A copy of the detector whose weights lie on ``device``: the
         ``nn.Module`` deep-copied there, and every tensor of ``variables``
         (the ONNX route keeps its weights there, engine/onnx_wrapper.py)
-        copied there. Everything else is shared with this detector."""
+        copied there, with no CUDA graph of its own yet. Everything else is
+        shared with this detector."""
         rep = copy.copy(self)
         rep.device = resolve_device(device)
+        rep.forward_graphs = ForwardGraphs()
         if isinstance(self.model, torch.nn.Module):
             rep.model = copy.deepcopy(self.model).to(rep.device)
         if isinstance(getattr(self, "variables", None), dict):
@@ -297,6 +428,7 @@ class YoloV11PoseDetectionModel(DetectionModel):
 
     def load_model(self) -> None:
         self.model = self.float32_model().set_dtypes().to(self.device).eval()
+        self.forward_graphs.clear()
 
     def float32_model(self):
         """The model as its checkpoint (or seed) gives it: float32 on the
@@ -328,14 +460,23 @@ class YoloV11PoseDetectionModel(DetectionModel):
         return model
 
     def tile_forward_nchw(self, tiles: torch.Tensor, conf_threshold: float) -> Detections:
+        """The forward, the decode and the top-k (``decode_to_detections``
+        without its NMS), then the per-tile IoU NMS. On the card, with the
+        model in eval mode and no capture under way, the chain before the
+        NMS is replayed from ``forward_graphs``, one CUDA graph per
+        ``graph_key``; elsewhere it runs eagerly. Captured inside
+        ``_exact_float32``, so the float32 mode replays TF32-off kernels."""
         from facedet_tpu_torch.models.yolo_decode import decode_predictions, decode_to_detections
+        from facedet_tpu_torch.ops.nms import nms
 
+        def pre(x):
+            return decode_to_detections(decode_predictions(self.model.forward_nchw(x)),
+                                        conf_threshold=conf_threshold,
+                                        max_detections=self.max_detections_per_tile, with_nms=False)
+
+        key = None
+        if tiles.is_cuda and not self.model.training and not torch.cuda.is_current_stream_capturing():
+            key = graph_key(tiles, conf_threshold, self.max_detections_per_tile)
         with torch.inference_mode(), _exact_float32(self.dtype == "float32"):
-            preds = decode_predictions(self.model.forward_nchw(tiles))
-            return decode_to_detections(
-                preds,
-                conf_threshold=conf_threshold,
-                max_detections=self.max_detections_per_tile,
-                nms_iou=0.7,
-                class_agnostic=True,
-            )
+            return self.forward_graphs(self.model, pre, tiles, key,
+                                       lambda det: nms(det, iou_threshold=0.7, class_agnostic=True))

@@ -204,7 +204,9 @@ def quantize_detector(det, calib_images=None, n_calib: int = 4) -> int:
     (uint8 HWC list; synthetic natural-statistics tiles when None) on the
     detector's device, in its dtype, and swap the chosen layers of
     ``det.model``, quantizing float32 kernels (a bfloat16 detector's from
-    ``det.float32_model()``). Returns the quantized-conv count."""
+    ``det.float32_model()``). The detector's CUDA graphs, which hold the
+    replaced layers' weights, are dropped. Returns the quantized-conv
+    count."""
     if getattr(det, "model", None) is None:
         det.load_model()
     size = int(getattr(det, "image_size", None) or 640)
@@ -222,6 +224,7 @@ def quantize_detector(det, calib_images=None, n_calib: int = 4) -> int:
     if any(p.dtype != torch.float32 for p in det.model.parameters()):
         float_model = det.float32_model()
     quantize_model(det.model, calibrate(det.model, batches), float_model=float_model)
+    det.forward_graphs.clear()
     return sum(1 for _ in _iter_q(det.model))
 
 

@@ -73,8 +73,12 @@ def test_a_request_nests_its_stages_and_the_fixpoints(model, image):
     assert all(s.request == root.request and s.thread == root.thread for s in spans)
     assert all(root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns for s in spans)
     by_name = {s.name: s for s in spans if s.parent is root}
-    for name in ("forward.tiles", "forward.full", "merge"):
-        assert _children(spans, by_name[name]) == ["nms"], name
+    # each forward's pre-NMS chain is a `detector` span; its NMS follows it
+    for name in ("forward.tiles", "forward.full"):
+        assert _children(spans, by_name[name]) == ["detector", "nms"], name
+    assert _children(spans, by_name["merge"]) == ["nms"]
+    for det in (s for s in spans if s.name == "detector"):
+        assert det.counts == {"graph_eager": 1} and _children(spans, det) == []
     for nms in (s for s in spans if s.name == "nms"):
         rounds = nms.counts["nms_rounds"]
         assert rounds >= 1 and _children(spans, nms) == ["readback"] * rounds
