@@ -4,10 +4,10 @@ seeds and the control's, each over a window of the cell's own load.
     python port_bench/control.py --workload <cell> --seeds 1,2,3 --seconds 5 [--mode program|control|both]
 
 The control is one precision below the configuration's bfloat16: the
-program with its own int8 path switched on (``quantize_detector``) and, for
-a cell with an enhancer, the reference's RRDBNet computed in int8
-(``reference/rrdb.int8_conv``) in the enhancer's place. One line of JSON per
-mode and seed. The benchmark's own runs never run this.
+program with its own int8 path switched on (its family's ``program(...,
+int8=True)``) and, for a cell with an enhancer, the reference's RRDBNet
+computed in int8 (``reference/rrdb.int8_conv``) in the enhancer's place.
+One line of JSON per mode and seed. The benchmark's own runs never run this.
 """
 from __future__ import annotations
 
@@ -27,7 +27,8 @@ def readings(cell: harness.Cell, seeds, seconds: float, mode: str, device="cuda"
     """Yields {mode, seed, numbers, failed, attempted, images} per seed."""
     import torch
 
-    from port_bench.reference import rrdb, yolo
+    from port_bench import weights
+    from port_bench.reference import rrdb
     from port_bench.reference.expected import Reference
 
     ref = Reference(cell.config, harness.ROOT, device)
@@ -35,7 +36,7 @@ def readings(cell: harness.Cell, seeds, seconds: float, mode: str, device="cuda"
     kwargs = {}
     if mode == "control" and "enhancer" in cell.config:
         e = cell.config["enhancer"]
-        net = rrdb.RRDB(yolo.load_npz(os.path.join(harness.ROOT, e["weights"]), device), e["scale"], e["num_block"])
+        net = rrdb.RRDB(weights.load_npz(os.path.join(harness.ROOT, e["weights"]), device), e["scale"], e["num_block"])
         net.conv = rrdb.int8_conv
         kwargs["enhancer"] = rrdb.Enhancer(net, e["outscale"], e["tile"], e["tile_pad"], device)
     drv = module.Driver(cell, device, int8=mode == "control", **kwargs)

@@ -6,13 +6,29 @@ adds a cell, a mix, a configuration, an entry or a metric by adding files):
 
   workloads/<cell>.json   the cell: configuration, mix, entry driver and its
                           settings, traced-window size, limits of the check
-  configs/<config>.json   the configuration: weights, precision, slicing
+  configs/<config>.json   the configuration: weights, precision, slicing;
+                          ``detector.family`` names its family file
+  families/<family>.py    a detector family: ``program(config, device,
+                          int8=False)`` the port's ``DetectionModel`` (``int8``
+                          the program's own int8 path, the check's control);
+                          ``reference(config, root, device)`` the plain
+                          reference's per-tile function, float32 tiles
+                          [B, 3, h, w] and ``conf`` in, per tile numpy
+                          {boxes, scores, kpts} in tile pixels out, after the
+                          family's own post-processing; ``flops(h, w, det)``
+                          the model FLOPs of one forward at h x w
   traffic/<mix>.json      the mix, read by ``traffic.make``
   drivers/<entry>.py      drives one entry of the program (``Driver``)
   metrics/<metric>.py     reads one metric (``read(ctx)``; the file of the
                           whole name first, else of the part before its
                           first dot); ``None`` leaves the metric out
   reference/              the plain reference the answers are judged by
+
+A configuration's ``detector.weights`` is the path of an ``.npz`` under the
+repository or ``{"seed": N}``; the family alone resolves it
+(``weights.py``): it draws float32 arrays from N, the program loads them
+through its public loader from an ``.npz`` written under ``build/``, and the
+reference takes the same arrays. The harness reads neither form.
 
 Which metrics a cell reports is ``BENCHMARK.json``'s: the end-to-end ones
 that list the cell (or list no cells) and the per-layer ones that list it
@@ -50,6 +66,15 @@ def reader(name: str):
         if os.path.exists(os.path.join(HERE, "metrics", f"{candidate}.py")):
             return load_module("metrics", candidate).read
     raise FileNotFoundError(f"no reader for metric {name!r} under port_bench/metrics/")
+
+
+def family(name: str):
+    """``port_bench/families/<name>.py``, the detector family a
+    configuration's ``detector.family`` names."""
+    path = os.path.join(HERE, "families", f"{name}.py")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no detector family {name!r}: {os.path.relpath(path, ROOT)} does not exist")
+    return load_module("families", name)
 
 
 def benchmark() -> dict:
@@ -131,7 +156,7 @@ def image_costs(c: Cell) -> tuple[float, float]:
         h, w = h * enh["outscale"], w * enh["outscale"]
     sh, sw = sahi.fixed_grid_slices(h, w) if s.get("policy") == "fixed_grid" else (s["slice"], s["slice"])
     offsets, _, canvas = sahi.slice_grid(h, w, sh, sw, s["overlap"])
-    f = lambda a, b: flops.yolo11_pose_flops(a, b, det["scale"], det["num_classes"], det["num_keypoints"])  # noqa: E731
-    total += len(offsets) * f(sh, sw) + f(det["image_size"], det["image_size"])
+    f = family(det["family"]).flops
+    total += len(offsets) * f(sh, sw, det) + f(det["image_size"], det["image_size"], det)
     itemsize = 2 if det["dtype"] == "bfloat16" else 4
     return total, nbytes.gather_bytes(canvas, offsets, sh, sw, 3, itemsize)

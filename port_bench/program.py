@@ -8,24 +8,14 @@ import os
 
 import numpy as np
 
-from port_bench.harness import ROOT
+from port_bench.harness import ROOT, family
 
 
 def detector(config: dict, device, int8: bool = False):
-    """The configuration's detector on ``device``; ``int8`` switches on the
-    program's own int8 path (``models.quantize.quantize_detector``), the
-    check's control."""
-    from facedet_tpu_torch import YoloV11PoseDetectionModel
-
-    d = config["detector"]
-    model = YoloV11PoseDetectionModel(model_path=os.path.join(ROOT, d["weights"]), scale=d["scale"],
-                                      image_size=d["image_size"], dtype=d["dtype"], device=device,
-                                      confidence_threshold=d["confidence_threshold"])
-    if int8:
-        from facedet_tpu_torch.models.quantize import quantize_detector
-
-        quantize_detector(model)
-    return model
+    """The configuration's detector on ``device``, built by its family
+    (``families/<family>.py``); ``int8`` switches on the program's own int8
+    path, the check's control."""
+    return family(config["detector"]["family"]).program(config, device, int8)
 
 
 def enhancer(config: dict, device):

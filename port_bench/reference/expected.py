@@ -4,7 +4,9 @@
 
 Inputs are the benchmark's own (``traffic.make``): the uint8 photo and, for
 the ``dct420s`` format, its quantized DCT planes, which are what the program
-is handed. Weights are read from the configuration's ``.npz`` files.
+is handed. The detector's per-tile function is its family's
+(``families/<family>.py``), over the weights that the family resolves; the
+enhancer's weights are read from the configuration's ``.npz``.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ import os
 import numpy as np
 import torch
 
-from port_bench.reference import ingest, rrdb, sahi, yolo
+from port_bench import harness, weights
+from port_bench.reference import ingest, rrdb, sahi
 
 
 @contextlib.contextmanager
@@ -31,12 +34,11 @@ def exact_float32():
 class Reference:
     def __init__(self, config: dict, root: str, device):
         self.cfg, self.device = config, torch.device(device)
-        det = config["detector"]
-        self.yolo = yolo.Yolo(yolo.load_npz(os.path.join(root, det["weights"]), self.device))
+        self.detect_tiles = harness.family(config["detector"]["family"]).reference(config, root, self.device)
         self.sr = None
         if "enhancer" in config:
             enh = config["enhancer"]
-            self.sr = rrdb.RRDB(yolo.load_npz(os.path.join(root, enh["weights"]), self.device),
+            self.sr = rrdb.RRDB(weights.load_npz(os.path.join(root, enh["weights"]), self.device),
                                 enh["scale"], enh["num_block"])
 
     def detect(self, canvas: torch.Tensor, h: int, w: int, fetch: int = 0) -> dict:
@@ -45,7 +47,7 @@ class Reference:
             sh, sw = sahi.fixed_grid_slices(h, w)
         else:
             sh = sw = s["slice"]
-        return sahi.sliced_detect(self.yolo, yolo.decode, canvas, h, w, sh, sw,
+        return sahi.sliced_detect(self.detect_tiles, canvas, h, w, sh, sw,
                                   conf=self.cfg["detector"]["confidence_threshold"],
                                   img_size=self.cfg["detector"]["image_size"], overlap=s["overlap"],
                                   match_threshold=s["match_threshold"], fetch=fetch)

@@ -1,15 +1,18 @@
-"""Plain float32 sliced detection (SAHI): slice grid, tile crop, detector per
-tile, per-tile NMS, letterboxed standard pass, shift to image coordinates,
-greedy merge, clip. Each step is written out the straightforward way (loops
-over kept boxes, slicing for the tiles); nothing of the program is imported.
+"""Plain float32 sliced detection (SAHI): slice grid, tile crop, the
+family's per-tile detection, letterboxed standard pass, shift to image
+coordinates, greedy merge, clip. Each step is written out the
+straightforward way (loops over kept boxes, slicing for the tiles); nothing
+of the program is imported.
 
 Semantics, as the program documents them:
   * grid: SAHI ``get_slice_bboxes`` (stride S - int(overlap * S), edge tiles
     moved inward to exactly S), tile counts bucketed to {1, 2, 4, 6, 8, 12,
     16, 24, 32, 48, 64, 96, 128}, padding tiles repeat offset 0 and are
     invalid; the canvas is the image zero-padded to multiples of 256;
-  * per tile: class score >= conf, the 300 best by a stable descending
-    sort, greedy IoU-0.7 NMS;
+  * per tile: the detector family's own function
+    (``families/<family>.py``'s ``reference``); ``tile_detections`` is the
+    post-processing of a family with NMS: class score >= conf, the 300 best
+    by a stable descending sort, greedy IoU-0.7 NMS;
   * standard pass: the padded canvas resampled (``jax.image.
     scale_and_translate``, antialiased triangle, translation 0) at the scale
     min(S/h, S/w) into an S x S image, boxes divided by the scale;
@@ -133,19 +136,20 @@ def tile_detections(model, decode, tiles: torch.Tensor, conf: float, top_k: int 
     return out
 
 
-def sliced_detect(model, decode, canvas: torch.Tensor, h: int, w: int, sh: int, sw: int, *, conf: float,
+def sliced_detect(detect_tiles, canvas: torch.Tensor, h: int, w: int, sh: int, sw: int, *, conf: float,
                   img_size: int = 640, overlap: float = 0.2, match_threshold: float = 0.5,
                   merge_capacity: int = 1024, fetch: int = 0, tile_batch: int = 8) -> dict:
     """The sliced pipeline on a float32 CHW ``canvas`` [3, Hc, Wc] in [0, 1]
-    (the image at the top left, zeros elsewhere) of an ``h`` x ``w`` image.
-    Returns numpy {boxes, scores, kpts} of the merged detections, by
-    descending score."""
+    (the image at the top left, zeros elsewhere) of an ``h`` x ``w`` image,
+    with ``detect_tiles(tiles [B, 3, h, w], conf)`` -> per tile numpy
+    {boxes, scores, kpts} in tile pixels. Returns numpy {boxes, scores,
+    kpts} of the merged detections, by descending score."""
     offsets, _bucket, _ = slice_grid(h, w, sh, sw, overlap)
     parts = []
     for i in range(0, len(offsets), tile_batch):
         chunk = offsets[i:i + tile_batch]
         tiles = torch.stack([canvas[:, y:y + sh, x:x + sw] for y, x in chunk])
-        for (y, x), det in zip(chunk, tile_detections(model, decode, tiles, conf)):
+        for (y, x), det in zip(chunk, detect_tiles(tiles, conf)):
             shift = np.array([x, y], np.float32)
             det["boxes"] = det["boxes"] + np.tile(shift, 2)
             det["kpts"][..., :2] += shift
@@ -154,7 +158,7 @@ def sliced_detect(model, decode, canvas: torch.Tensor, h: int, w: int, sh: int, 
     wh = resample_weights(canvas.shape[1], img_size, scale).to(canvas.device)
     ww = resample_weights(canvas.shape[2], img_size, scale).to(canvas.device)
     full = torch.matmul(torch.matmul(wh.t(), canvas), ww)
-    std = tile_detections(model, decode, full[None], conf)[0]
+    std = detect_tiles(full[None], conf)[0]
     s = float(scale)
     std["boxes"] = std["boxes"] / np.float32(s)
     std["kpts"][..., :2] /= np.float32(s)

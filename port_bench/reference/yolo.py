@@ -1,5 +1,6 @@
-"""Plain float32 YOLOv11-pose forward and head decode, read straight from a
-flax checkpoint (``.npz`` of ``params/...`` and ``batch_stats/...``).
+"""Plain float32 YOLOv11-pose forward and head decode, over the tensors of a
+flax checkpoint (``params/...`` and ``batch_stats/...``, as
+``port_bench.weights`` gives them).
 
 Written from the published YOLO11 architecture (Ultralytics
 ``yolo11-pose.yaml``: CSP backbone of C3k2 blocks, SPPF, C2PSA, PAN neck,
@@ -10,26 +11,12 @@ here. Eval-mode BatchNorm with eps 1e-3, as flax's ``nn.BatchNorm``. NCHW
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
 BN_EPS = 1e-3
 STRIDES = (8, 16, 32)
 REG_MAX = 16
-
-
-def load_npz(path: str, device) -> dict[str, torch.Tensor]:
-    """Flat ``a/b/c`` npz -> {key: float32 tensor on ``device``}; conv
-    kernels HWIO become OIHW."""
-    out = {}
-    with np.load(path) as flat:
-        for key in flat.files:
-            a = flat[key].astype(np.float32)
-            if key.endswith("kernel") and a.ndim == 4:
-                a = a.transpose(3, 2, 0, 1)
-            out[key] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    return out
 
 
 class Yolo:

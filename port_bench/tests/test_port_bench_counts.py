@@ -11,7 +11,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from port_bench import bytes as nbytes
-from port_bench import flops, harness
+from port_bench import flops, harness, weights
 from port_bench.reference import rrdb, sahi, yolo
 
 ASSETS = os.path.join(harness.ROOT, "facedet_tpu", "eval", "assets")
@@ -26,7 +26,7 @@ def _counted(fn, *args) -> int:
 
 @pytest.fixture(scope="module")
 def yolo_ref():
-    return yolo.Yolo(yolo.load_npz(os.path.join(ASSETS, "yolo11n_golden.npz"), "cpu"))
+    return yolo.Yolo(weights.load_npz(os.path.join(ASSETS, "yolo11n_golden.npz"), "cpu"))
 
 
 @pytest.mark.parametrize("hw", [(640, 640), (512, 704), (320, 480)])
@@ -42,7 +42,7 @@ def test_yolo_flops_at_640_are_yolo11n_pose_sized():
 
 @pytest.mark.parametrize("hw", [(32, 48), (64, 40)])
 def test_rrdb_flops_match_the_reference_forward(hw):
-    params = yolo.load_npz(os.path.join(ASSETS, "rrdb_x2_golden.npz"), "cpu")
+    params = weights.load_npz(os.path.join(ASSETS, "rrdb_x2_golden.npz"), "cpu")
     net = rrdb.RRDB(params, 2, 23)
     assert flops.rrdb_flops(*hw) == _counted(net, torch.zeros(1, 3, *hw))
 
@@ -74,15 +74,28 @@ def test_gather_bytes_of_the_serving_image():
     assert abs(16 * nbytes.gather_bytes(canvas, offsets, 640, 640, 3, 2) / 3.35e12 * 1e3 - 0.11550) < 1e-5
 
 
-def test_image_costs_of_each_cell():
-    bench = harness.benchmark()
-    for w in bench["workloads"]:
-        c = harness.cell(w["name"], bench)
-        total, gathered = harness.image_costs(c)
-        det = 7 * flops.yolo11_pose_flops(640, 640)
-        if "enhancer" in c.config:
-            assert total == flops.rrdb_flops(768, 1024) + 16 * flops.yolo11_pose_flops(512, 704) \
-                + flops.yolo11_pose_flops(640, 640)
-        else:
-            assert total == det
-        assert gathered > 0 and np.isfinite(gathered)
+# the cells' model FLOPs from the detector's per-forward count ``f`` at the
+# cells' own tile shapes: the tiles, the letterboxed standard pass at 640²,
+# the enhancer before them in v2
+CASES = {
+    "x2plus_v2.single_rgb": lambda f: flops.rrdb_flops(768, 1024) + 16 * f(512, 704) + f(640, 640),
+    "yolo11n.single_rgb": lambda f: 7 * f(640, 640),
+    "yolo11n.single_crowd": lambda f: 7 * f(640, 640),
+}
+# what the families of those cells count, written out
+FAMILY_FLOPS = {"yolo11-pose": flops.yolo11_pose_flops}
+
+
+@pytest.mark.parametrize("name", [w["name"] for w in harness.benchmark()["workloads"]])
+def test_image_costs_of_each_cell(name):
+    """Each cell's detector term is its own family's ``flops``."""
+    c = harness.cell(name)
+    det = c.config["detector"]
+    own = harness.family(det["family"]).flops
+    total, gathered = harness.image_costs(c)
+    assert gathered > 0 and np.isfinite(gathered)
+    assert total >= own(det["image_size"], det["image_size"], det) > 0
+    if name in CASES:
+        assert total == CASES[name](lambda h, w: own(h, w, det))
+    if name in CASES and det["family"] in FAMILY_FLOPS:
+        assert total == CASES[name](FAMILY_FLOPS[det["family"]])

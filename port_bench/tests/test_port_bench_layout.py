@@ -166,3 +166,110 @@ def test_a_new_cell_configuration_mix_driver_and_metric_are_found(tmp_path):
     after = _digest(tmp_path / "port_bench")
     assert all(after[k] == v for k, v in before.items())  # nothing that was there changed
     assert filecmp.cmp(tmp_path / "port_bench" / "run.py", os.path.join(harness.HERE, "run.py"), shallow=False)
+
+
+# a detector family that no file of the harness names: the port's YOLO11-pose
+# detector and the plain reference's forward over weights drawn from the
+# configuration's seed, with the shapes of a YOLO11n-pose checkpoint
+NEW_FAMILY = '''
+import numpy as np
+
+from port_bench import flops as counts
+from port_bench import weights
+
+SHAPES = {shapes!r}
+
+
+def draw(seed):
+    rng = np.random.default_rng(seed)
+    out = {{}}
+    for key in sorted(SHAPES):
+        shape, leaf = SHAPES[key], key.rsplit("/", 1)[1]
+        if leaf == "kernel":
+            out[key] = rng.standard_normal(shape) * np.sqrt(2.0 / np.prod(shape[:-1]))
+        elif leaf in ("var", "scale"):
+            out[key] = rng.uniform(0.5, 1.5, shape)
+        else:
+            out[key] = 0.1 * rng.standard_normal(shape)
+    return out
+
+
+def program(config, device, int8=False):
+    from facedet_tpu_torch import YoloV11PoseDetectionModel
+
+    from port_bench.harness import ROOT
+
+    d = config["detector"]
+    return YoloV11PoseDetectionModel(model_path=weights.path(d["weights"], ROOT, draw), scale="n",
+                                     image_size=d["image_size"], dtype=d["dtype"], device=device,
+                                     confidence_threshold=d["confidence_threshold"])
+
+
+def reference(config, root, device):
+    from port_bench.reference import sahi, yolo
+
+    net = yolo.Yolo(weights.tensors(weights.arrays(config["detector"]["weights"], root, draw), device))
+    return lambda tiles, conf: sahi.tile_detections(net, yolo.decode, tiles, conf)
+
+
+def flops(h, w, det):
+    return counts.yolo11_pose_flops(h, w, "n")
+'''
+
+NEW_FAMILY_RUN = '''
+import json, sys, time
+import torch
+from port_bench import harness
+from port_bench.run import run
+
+torch.set_num_threads(4)
+result, lines = run(harness.cell("fresh.cell"), 2**33 + 7, 0.5, False, device="cpu", t_start=time.perf_counter())
+print("\\n".join(lines), file=sys.stderr)
+print(json.dumps(result))
+'''
+
+
+def test_a_new_detector_family_with_seeded_weights_is_found(tmp_path):
+    """A configuration whose ``detector.family`` no file of the harness names,
+    its family file with weights from ``{"seed": N}``, and a cell: run on the
+    CPU through ``run.run`` with the harness's own reference, ``correct``,
+    and nothing that was there changed."""
+    import numpy as np
+
+    pb = tmp_path / "port_bench"
+    shutil.copytree(harness.HERE, pb, ignore=shutil.ignore_patterns("__pycache__"))
+    before = _digest(pb)
+    family = "fresh-" + hashlib.sha256(str(tmp_path).encode()).hexdigest()[:8]
+    for rel in before:
+        if not rel.startswith("tests"):
+            assert family not in (pb / rel).read_text(errors="ignore"), rel
+    with np.load(os.path.join(harness.ROOT, "facedet_tpu", "eval", "assets", "yolo11n_golden.npz")) as golden:
+        shapes = {k: golden[k].shape for k in golden.files}
+    (pb / "families" / f"{family}.py").write_text(NEW_FAMILY.format(shapes=shapes))
+    detector = {"family": family, "weights": {"seed": 20240607}, "num_classes": 1, "num_keypoints": 5,
+                "dtype": "float32", "image_size": 64, "confidence_threshold": 0.3}
+    slicing = {"slice": 64, "overlap": 0.2, "standard_pass": True, "postprocess": "GREEDYNMM",
+               "match_metric": "IOS", "match_threshold": 0.5}
+    (pb / "configs" / "fresh_cfg.json").write_text(json.dumps({"detector": detector, "slicing": slicing}))
+    (pb / "traffic" / "fresh_mix.json").write_text(json.dumps(
+        {"photos": 2, "height": 96, "width": 128, "faces": 1, "face_px": [20, 30], "format": "rgb"}))
+    limits = harness.cell("yolo11n.single_rgb").spec["limits"]
+    (pb / "workloads" / "fresh.cell.json").write_text(json.dumps(
+        {"driver": "single", "reference": "sliced", "entry": {}, "trace_requests": 2, "limits": limits}))
+    bench = harness.benchmark()
+    bench["configs"].append({"name": "fresh_cfg", "source": "https://example.org/fresh",
+                             "file": "port_bench/configs/fresh_cfg.json", "reduced": [], "why": "a test"})
+    bench["workloads"].append({"name": "fresh.cell", "config": "fresh_cfg", "traffic": "fresh_mix", "chips": 1,
+                               "why": "a test"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    (tmp_path / "fresh_run.py").write_text(NEW_FAMILY_RUN)
+    out = subprocess.run([sys.executable, "fresh_run.py"], cwd=tmp_path, capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=os.pathsep.join([str(tmp_path), harness.ROOT])))
+    assert out.returncode == 0, out.stderr[-3000:]
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["correct"] and result["failed"] == 0 and result["attempted"] > 0, (result, out.stderr[-2000:])
+    assert set(result["metrics"]) == {"setup_s"}
+    drawn = list((tmp_path / "build" / "port_bench_weights").glob("*.npz"))
+    assert len(drawn) == 1  # the program's file, drawn once
+    after = _digest(pb)
+    assert all(after[k] == v for k, v in before.items())  # nothing that was there changed
