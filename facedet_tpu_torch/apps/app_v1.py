@@ -26,6 +26,7 @@ def main(argv=None):
     model = build_detector(
         DetectorConfig(
             family=args.family,
+            variant=args.variant,
             scale=args.scale,
             model_path=args.model_path,
             confidence_threshold=args.conf,

@@ -48,6 +48,7 @@ def build_detector(cfg: DetectorConfig, device: str = "cuda"):
 
         return RtDetrDetectionModel(
             model_path=cfg.model_path,
+            variant=cfg.variant or "rtdetr-l",
             confidence_threshold=cfg.confidence_threshold,
             image_size=cfg.image_size,
             dtype=cfg.dtype,
@@ -91,6 +92,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
         choices=["yolov11", "scrfd", "rtdetr", "onnx", "fake"],
     )
     ap.add_argument("--scale", default="s", help="yolo model scale n/s/m/l/x")
+    ap.add_argument("--variant", default=None,
+                    help="rtdetr variant: rtdetr-l (the default preset) or rtdetr-l-hgnetv2 (the published RT-DETR-l)")
     ap.add_argument("--conf", type=float, default=0.3)
     ap.add_argument("--imgsz", type=int, default=640)
     ap.add_argument("--slice", type=int, default=640)

@@ -21,7 +21,8 @@ CUDA graphs: on the card, ``YoloV11PoseDetectionModel.tile_forward_nchw``
 replays its pre-NMS chain (the forward, the decode and the top-k) from one
 ``torch.cuda.CUDAGraph`` per tile shape (``ForwardGraphs``), and runs the
 per-tile NMS, whose rounds read back to the host, eagerly on the graph's
-outputs.
+outputs. ``RtDetrDetectionModel`` (engine/rtdetr_wrapper.py) replays its
+whole chain the same way; it runs no NMS.
 """
 from __future__ import annotations
 
@@ -150,14 +151,18 @@ class ForwardGraphs:
         self._eager.clear()
         self._model = None
 
-    def __call__(self, model, pre: Callable, tiles: torch.Tensor, key: Optional[tuple], post: Callable):
+    def __call__(self, model, pre: Callable, tiles: torch.Tensor, key: Optional[tuple], post: Callable,
+                 counts: Optional[dict] = None):
         """``post(pre(tiles))``, ``pre`` run inside a ``detector`` span of
         ``SPANS`` that counts one of ``graph_replays`` (replayed),
         ``graph_captures`` (captured, then replayed) or ``graph_eager`` (run
-        eagerly: ``key`` is None, or its capture failed). ``model`` is the
+        eagerly: ``key`` is None, or its capture failed), and the caller's
+        own ``counts`` ({counter: n}, known on the host). ``model`` is the
         module whose weights ``pre`` reads."""
         with self.lock:
             with SPANS.span("detector") as span:
+                for name, n in (counts or {}).items():
+                    span.add(name, n)
                 out = self._pre(model, pre, tiles, key, span)
             return post(out)
 

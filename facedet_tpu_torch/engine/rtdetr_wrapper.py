@@ -6,6 +6,22 @@ SCRFD, so it composes with the sliced pipeline unchanged. As in the JAX
 package, ``tile_forward`` scales both box axes by the tile **height**,
 returns the raw top-k scores without NMS (set predictions) and zero
 keypoints.
+
+Two kinds of variant, by name: the presets of models/rtdetr.py
+(``rtdetr-l``, ``rtdetr-m``, ``rtdetr-tiny``), which keep parity with the
+JAX package's flax model and load its ``.npz`` trees; and the published
+RT-DETR-l of models/rtdetr_l.py (``rtdetr-l-hgnetv2``, and its narrow
+``rtdetr-l-hgnetv2-tiny``), which loads Ultralytics' own state-dict names
+from an ``.npz`` or an exported ``model.state_dict()`` (``.pt`` / ``.pth``),
+strictly (``rtdetr_l.load_state``). Without a path either is a seeded random
+init.
+
+On the card, in eval mode and with no capture under way, the whole chain
+(forward, boxes to pixels, the sort and the validity mask) is replayed from
+the detector's ``ForwardGraphs``, one CUDA graph per tile shape, inside a
+``detector`` span that also counts ``deform_samples``: the bilinear samples
+of the decoder's deformable attention in the call (tiles x queries x heads x
+3 levels x points x layers, from the shapes on the host).
 """
 from __future__ import annotations
 
@@ -17,28 +33,54 @@ import numpy as np
 import torch
 
 from facedet_tpu_torch.core.detections import Detections, take_rows
-from facedet_tpu_torch.engine.detector import DetectionModel, _exact_float32
+from facedet_tpu_torch.engine.detector import DetectionModel, _exact_float32, graph_key
 from facedet_tpu_torch.models.rtdetr import RTDETR_VARIANTS, RtDetr, decode_rtdetr
+from facedet_tpu_torch.models.rtdetr_l import NUM_LEVELS, RTDETR_L_VARIANTS, RtDetrL, load_state
 
 
 class RtDetrDetectionModel(DetectionModel):
     def __init__(self, *args, variant: str = "rtdetr-l", dtype: str = "bfloat16", seed: int = 0, **kwargs):
+        if variant not in RTDETR_VARIANTS and variant not in RTDETR_L_VARIANTS:
+            raise ValueError(f"unknown RT-DETR variant {variant!r}; expected one of "
+                             f"{sorted(RTDETR_VARIANTS) + sorted(RTDETR_L_VARIANTS)}")
         self.variant = variant
         self.dtype = dtype
         self.seed = seed
         super().__init__(*args, **kwargs)
 
+    @property
+    def published(self) -> bool:
+        """The published RT-DETR-l layout (models/rtdetr_l.py)."""
+        return self.variant in RTDETR_L_VARIANTS
+
     def load_model(self) -> None:
-        from facedet_tpu_torch.models.from_jax import load_jax_variables, load_params_npz
+        self.model = self.float32_model().set_dtypes().to(self.device).eval()
+        self.forward_graphs.clear()
+
+    def float32_model(self):
+        """The model as its checkpoint (or seed) gives it: float32 on the
+        CPU, before ``set_dtypes``. models/quantize.py quantizes a bfloat16
+        detector's kernels from it."""
         from facedet_tpu_torch.models.init import random_init
 
-        cfg = RTDETR_VARIANTS[self.variant]
-        self.cfg = dataclasses.replace(cfg, dtype=self.dtype, num_classes=len(self.category_mapping))
-        model = RtDetr(self.cfg)
-        if self.model_path is None:
+        variants = RTDETR_L_VARIANTS if self.published else RTDETR_VARIANTS
+        self.cfg = dataclasses.replace(variants[self.variant], dtype=self.dtype,
+                                       num_classes=len(self.category_mapping))
+        model = (RtDetrL if self.published else RtDetr)(self.cfg)
+        path = None if self.model_path is None else str(self.model_path)
+        if path is None:
             random_init(model, self.seed)
-        elif str(self.model_path).endswith(".npz"):
-            tree = load_params_npz(self.model_path)
+        elif self.published and path.endswith(".npz"):
+            with np.load(path) as flat:
+                load_state(model, {k: flat[k] for k in flat.files})
+        elif self.published and path.endswith((".pt", ".pth")):
+            from facedet_tpu_torch.models.convert import _load_torch_state_dict
+
+            load_state(model, _load_torch_state_dict(path))
+        elif path.endswith(".npz"):
+            from facedet_tpu_torch.models.from_jax import load_jax_variables, load_params_npz
+
+            tree = load_params_npz(path)
             # checkpoints from before the denoising table existed lack
             # dn_embed; inference never reads it, so zeros of the right shape
             # stand in. A missing "params" fails here.
@@ -48,12 +90,22 @@ class RtDetrDetectionModel(DetectionModel):
             load_jax_variables(model, tree)
         else:
             raise ValueError(f"unsupported checkpoint format: {self.model_path}")
-        self.model = model.set_dtypes().to(self.device).eval()
+        return model
+
+    def deform_samples(self, tiles: int) -> int:
+        """Bilinear samples the decoder takes for ``tiles`` tiles."""
+        c = self.cfg
+        return tiles * c.num_queries * c.num_heads * NUM_LEVELS * c.num_points * c.num_decoder_layers
 
     def tile_forward_nchw(self, tiles: torch.Tensor, conf_threshold: float) -> Detections:
-        with torch.inference_mode(), _exact_float32(self.dtype == "float32"):
-            outs = self.model.forward_nchw(tiles)
-            preds = decode_rtdetr(outs, image_size=tiles.shape[2])
+        """The forward, the boxes in tile pixels, the top-k by a stable
+        descending sort and the validity mask; no NMS. On the card, with the
+        model in eval mode and no capture under way, replayed from
+        ``forward_graphs``, one CUDA graph per ``graph_key``; elsewhere run
+        eagerly."""
+
+        def pre(x):
+            preds = decode_rtdetr(self.model.forward_nchw(x), image_size=x.shape[2])
             # DETR: set predictions, no NMS; top-k by score with a validity
             # mask. A stable descending sort breaks ties toward the lower
             # index, as lax.top_k does.
@@ -69,6 +121,13 @@ class RtDetrDetectionModel(DetectionModel):
                 kpts=torch.zeros((boxes.shape[0], k, 5, 3), dtype=torch.float32, device=boxes.device),
                 valid=top_val >= conf_threshold,
             )
+
+        key = None
+        if tiles.is_cuda and not self.model.training and not torch.cuda.is_current_stream_capturing():
+            key = graph_key(tiles, conf_threshold, self.max_detections_per_tile)
+        with torch.inference_mode(), _exact_float32(self.dtype == "float32"):
+            return self.forward_graphs(self.model, pre, tiles, key, lambda det: det.map(torch.clone),
+                                       counts={"deform_samples": self.deform_samples(tiles.shape[0])})
 
 
 class FaceDetector:

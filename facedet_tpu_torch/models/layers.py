@@ -37,6 +37,7 @@ __all__ = [
     "GroupBatchNorm2d",
     "sync_batch_statistics_",
     "make_divisible",
+    "activate",
     "ConvBnAct",
     "Int8ConvBnAct",
     "int8_matmul",
@@ -126,18 +127,30 @@ def sync_batch_statistics_(model: nn.Module, group) -> nn.Module:
     return model
 
 
+def activate(x: torch.Tensor, act) -> torch.Tensor:
+    """``ConvBnAct``'s activation: ``True`` SiLU, ``"relu"`` ReLU (the
+    HGNetv2 backbone's), ``False`` none."""
+    if act == "relu":
+        return F.relu(x)
+    return F.silu(x) if act else x
+
+
 class ConvBnAct(nn.Module):
-    """Conv2d(bias=False) + BatchNorm (flax's, momentum 0.97) + SiLU.
+    """Conv2d(bias=False) + BatchNorm (flax's, momentum 0.97) + SiLU, or
+    ReLU (``act="relu"``), or nothing (``act=False``).
 
     The conv runs in its weight's dtype (flax's ``dtype``). The BatchNorm
     keeps float32 statistics and normalises in float32, as flax does (the
     conv output promotes against the float32 statistics), then casts to
-    ``bn_dtype``. ``YoloV11.set_dtypes`` sets both."""
+    ``bn_dtype``. ``YoloV11.set_dtypes`` sets both. ``padding`` is
+    ``kernel // 2`` unless given (HGNetv2's 2x2 stem convs take 0)."""
 
-    def __init__(self, cin: int, cout: int, kernel: int = 1, stride: int = 1, groups: int = 1, act: bool = True):
+    def __init__(self, cin: int, cout: int, kernel: int = 1, stride: int = 1, groups: int = 1, act=True,
+                 padding: int | None = None):
         super().__init__()
         self.conv = nn.Conv2d(
-            cin, cout, kernel, stride=stride, padding=kernel // 2, groups=groups, bias=False
+            cin, cout, kernel, stride=stride, padding=kernel // 2 if padding is None else padding, groups=groups,
+            bias=False
         )
         self.bn = FlaxBatchNorm2d(cout, eps=1e-3, flax_momentum=0.97)
         self.act = act
@@ -146,7 +159,7 @@ class ConvBnAct(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x.to(self.conv.weight.dtype))
         x = self.bn(x.float()).to(self.bn_dtype)
-        return F.silu(x) if self.act else x
+        return activate(x, self.act)
 
 
 def int8_matmul(a: torch.Tensor, w_nk: torch.Tensor, n: int) -> torch.Tensor:
@@ -232,13 +245,14 @@ class Int8ConvBnAct(nn.Module):
        multiplied by the kernel flattened to ``[k*k*Cin, Cout]`` in one
        ``torch._int_mm`` per group (``int8_matmul``), on the CPU and the
        card alike;
-    3. ``y = bn_dtype(float32(acc) * oscale + obias)``, then SiLU if ``act``.
+    3. ``y = bn_dtype(float32(acc) * oscale + obias)``, then ``act`` as
+       ``ConvBnAct`` takes it (SiLU, ReLU or none).
 
     The GEMM's weight (``[Cout', k*k*Cin']``, zero-padded to multiples of 8)
     is derived from ``qkernel`` and rebuilt whenever a state dict is
     loaded; it is not saved. The output is NCHW in shape with NHWC memory."""
 
-    def __init__(self, cin: int, cout: int, kernel: int = 1, stride: int = 1, groups: int = 1, act: bool = True):
+    def __init__(self, cin: int, cout: int, kernel: int = 1, stride: int = 1, groups: int = 1, act=True):
         super().__init__()
         self.kernel, self.stride, self.groups, self.act = kernel, stride, groups, act
         self.bn_dtype = torch.float32
@@ -265,9 +279,7 @@ class Int8ConvBnAct(nn.Module):
         torch.clamp(q, -127.0, 127.0, out=q)
         xq = q.to(torch.int8)
         acc = int8_conv(xq, self.gemm_weight, k, s, self.qkernel.shape[0] // self.groups)
-        y = (acc.reshape(-1, acc.shape[-1]) * self.oscale + self.obias).to(self.bn_dtype)
-        if self.act:
-            y = F.silu(y)
+        y = activate((acc.reshape(-1, acc.shape[-1]) * self.oscale + self.obias).to(self.bn_dtype), self.act)
         return y.reshape(acc.shape).permute(0, 3, 1, 2)
 
 

@@ -9,7 +9,10 @@ not depthwise (one input channel per group), calibrated with a positive
 absmax, and not vetoed by ``predicate``. Scopes are flax paths, tuples of
 module names such as ``("backbone", "down2")``, the keys of the JAX
 package's ``calibrate``, so one absmax dict or exclusion list means the same
-in both packages.
+in both packages. A model that names its own exclusions (``INT8_EXCLUDE``:
+the published RT-DETR-l's stem) is quantized with them by
+``quantize_detector``; a conv whose padding is not ``k // 2`` is never
+chosen (the int8 conv pads so).
 
 Where the JAX package swaps the variables tree, the port swaps modules:
 each chosen ``ConvBnAct`` is replaced in its parent by an ``Int8ConvBnAct``
@@ -101,6 +104,7 @@ def _quantizable(m, path: tuple, act_absmax: dict, exclude, predicate) -> bool:
     return (
         not _excluded(path, exclude)
         and kernel.shape[1] > 1  # skip depthwise
+        and m.conv.padding[0] == kernel.shape[-1] // 2  # int8_conv pads k // 2
         and path in act_absmax
         and act_absmax[path] > 0
         and (predicate is None or predicate(path, kernel))
@@ -204,9 +208,10 @@ def quantize_detector(det, calib_images=None, n_calib: int = 4) -> int:
     (uint8 HWC list; synthetic natural-statistics tiles when None) on the
     detector's device, in its dtype, and swap the chosen layers of
     ``det.model``, quantizing float32 kernels (a bfloat16 detector's from
-    ``det.float32_model()``). The detector's CUDA graphs, which hold the
-    replaced layers' weights, are dropped. Returns the quantized-conv
-    count."""
+    ``det.float32_model()``), outside the model's ``INT8_EXCLUDE`` scopes
+    where it names them, else ``DEFAULT_EXCLUDE``'s. The detector's CUDA
+    graphs, which hold the replaced layers' weights, are dropped. Returns
+    the quantized-conv count."""
     if getattr(det, "model", None) is None:
         det.load_model()
     size = int(getattr(det, "image_size", None) or 640)
@@ -223,7 +228,8 @@ def quantize_detector(det, calib_images=None, n_calib: int = 4) -> int:
     float_model = None
     if any(p.dtype != torch.float32 for p in det.model.parameters()):
         float_model = det.float32_model()
-    quantize_model(det.model, calibrate(det.model, batches), float_model=float_model)
+    quantize_model(det.model, calibrate(det.model, batches),
+                   exclude=getattr(det.model, "INT8_EXCLUDE", DEFAULT_EXCLUDE), float_model=float_model)
     det.forward_graphs.clear()
     return sum(1 for _ in _iter_q(det.model))
 

@@ -37,6 +37,7 @@ class PostprocessConfig:
 @dataclasses.dataclass
 class DetectorConfig:
     family: str = "yolov11"  # yolov11 | scrfd | rtdetr | onnx | fake
+    variant: Optional[str] = None  # rtdetr: a preset (rtdetr-l by default) or rtdetr-l-hgnetv2
     scale: str = "s"
     model_path: Optional[str] = None
     confidence_threshold: float = 0.3
