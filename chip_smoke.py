@@ -13,7 +13,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    CHW gather also on the enhance-first pipeline's 2048x3072 canvas, on an
    odd width whose rows are not 16-byte aligned and on halo windows that
    are not square) and timed with CUDA events beside its byte bound, its
-   plain version and one PyTorch advanced-indexing call;
+   plain version and one PyTorch advanced-indexing call; ConvBnAct's
+   epilogue kernel (bn_act) on the output of every conv that a BatchNorm
+   follows in YOLO11n-pose (golden weights) and the benchmark's RT-DETR-l, at
+   6 and 1 tiles of 640, held bit for bit against the PyTorch / cuDNN chain
+   it replaces with the module's statistics and with statistics drawn wide
+   (channels-last input, RT-DETR-l's model.12 at 6 tiles, within one
+   bfloat16 ulp on at most 1% of elements), and timed per forward, kernel
+   and chain each replayed from a CUDA graph, beside the byte bound;
 4. single-image main path, with the launch counts set to 0 first:
    get_sliced_prediction with the golden yolo11n weights in float32 (TF32
    off) held against the same call on the CPU, get_prediction likewise, the
@@ -67,6 +74,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the same selection. bfloat16 main path, with the launch counts set to 0
    first: ms per image, a profile with the deformable-attention sampling as
    a group of its own, the 8,400-token selection timed alone, peak memory;
+   then the benchmark's RT-DETR-l (the published layout, whose convs end in
+   ConvBnAct; port_bench's seeded weights) through get_sliced_prediction on
+   two photos, its epilogue kernel launches counted from 0;
 18. ONNX: the golden SCRFD exported in insightface's nine-output layout
    at batch 1 (run as a loop over tiles) through ScrfdDetectionModel against the .npz route, the golden yolo11n exported
    with the ultralytics head through OnnxDetectionModel against
@@ -153,7 +163,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    two controls (the CPU against itself one ulp up, which breaks §2's gates
    too; the float32 detector, which the int8 gate must fail); bfloat16
    single image int8 beside float in turns (ms per image, a profile each,
-   the aten::_int_mm and aten::convolution counts), the int8 GEMMs alone
+   the aten::_int_mm and aten::convolution counts of one image run without
+   CUDA graphs, whose replays run no aten op), the int8 GEMMs alone
    (ms, TOPS, share of the int8 peak), detection agreement with float
    bfloat16 at IoU 0.5, and the serving stream (batch 64, window 3,
    dct420s) int8 against bfloat16 in images per second;
@@ -265,7 +276,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the box functions, Detections.from_arrays, batched_empty,
    attach_keypoints_to_predictions on the card's boxes, create_yolo's
    weights; pad_image's output through the HWC gather (one launch, counted);
-50. report: the wall seconds of every phase, a ``kernels`` JSON line, the nvidia-smi line, and last the
+50. report: the wall seconds of every phase, a ``kernels`` JSON line (bn_act's launches
+   are those of the single-image main path, phases 4-5, and of RT-DETR's
+   bfloat16 main path, phase 17), the nvidia-smi line, and last the
    ``{"ok": true, "device": ...}`` line.
 
 Every profile of phases 4-49 is one guarded window of
@@ -330,6 +343,19 @@ KERNELS.append({
     "source": "facedet_tpu_torch/csrc/tile_gather.cu",
     "replaces": "facedet_tpu/ops/pallas/tile_gather.py:114",
 })
+KERNELS += [
+    {
+        # no Pallas kernel: the JAX package leaves the chain to XLA, which
+        # fuses it into the conv; its timings are per detector forward at 6
+        # tiles of 640, and plain_ms = library_ms is the chain
+        "name": f"bn_act@{detector}",
+        "route": "cuda",
+        "source": "facedet_tpu_torch/csrc/bn_act.cu",
+        "replaces": "facedet_tpu_torch/models/layers.py ConvBnAct.forward: x.float(), cuDNN's BatchNorm, "
+                    ".to(bn_dtype), SiLU / ReLU",
+    }
+    for detector in ("yolo11n", "rtdetr-l")
+]
 ENHANCED = (2048, 3072)  # x2 of the production image
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bfloat16, NVIDIA data sheet
 SERVING_BATCH = 64
@@ -629,6 +655,156 @@ def kernel_phase(torch):
                 "bound_by": "bytes", "library_ms": library_ms,
             }
         del chw
+    results.update(bn_act_kernel_phase(torch))
+    return results
+
+
+def _epilogue_inputs(torch, model, batch):
+    """(module name, BatchNorm, output dtype, activation, the conv's output)
+    of every BatchNorm epilogue of one bfloat16 forward of ``batch`` 640x640
+    tiles of a synthetic photo, in forward order."""
+    import numpy as np
+
+    from facedet_tpu_torch.models.layers import ConvBnAct
+    from facedet_tpu_torch.models.rtdetr_l import ProjBn
+    from facedet_tpu_torch.utils.synth import synthetic_faces
+
+    found = []
+
+    def hook(name, owner):
+        def record(_m, _args, out):
+            if isinstance(owner, ConvBnAct):
+                found.append((name, owner.bn, owner.bn_dtype, owner.act, out.clone()))
+            else:
+                found.append((name, owner[1], torch.float32, False, out.clone()))
+
+        return record
+
+    handles = [(m.conv if isinstance(m, ConvBnAct) else m[0]).register_forward_hook(hook(name, m))
+               for name, m in model.named_modules() if isinstance(m, (ConvBnAct, ProjBn))]
+    arr = np.stack([synthetic_faces(SLICE, SLICE, seed=40 + i, n=3, size=(50, 140)) for i in range(batch)])
+    x = torch.from_numpy(arr).permute(0, 3, 1, 2).contiguous().to("cuda", torch.bfloat16) / 255.0
+    try:
+        with torch.inference_mode():
+            model.forward_nchw(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return found
+
+
+def _wide_bn(torch, bn, seed):
+    """A copy of ``bn`` with statistics and affine drawn wide (variances over
+    six orders of magnitude), on its device."""
+    import copy
+
+    g = torch.Generator().manual_seed(seed)
+    c = bn.num_features
+    wide = copy.deepcopy(bn)
+    with torch.no_grad():
+        wide.weight.copy_(1 + 0.3 * torch.randn(c, generator=g))
+        wide.bias.copy_(0.5 * torch.randn(c, generator=g))
+        wide.running_mean.copy_(torch.randn(c, generator=g))
+        wide.running_var.copy_(torch.exp(2 * torch.randn(c, generator=g)))
+    return wide
+
+
+def _graph_ms(torch, fn, reps=10):
+    """ms of one ``fn()`` from a CUDA graph of ``reps`` calls, the median of
+    five timed replays: no host time between launches."""
+    with torch.inference_mode():
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        times = []
+        for _ in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / reps)
+    del graph
+    return statistics.median(times)
+
+
+def published_rtdetr(torch):
+    """The benchmark's RT-DETR-l on the card: the published layout in
+    bfloat16, with port_bench's seeded weights, which keep its bfloat16 run
+    near float32 (port_bench/families/rtdetr.py)."""
+    from port_bench import harness
+
+    return harness.family("rtdetr").program(harness.cell("rtdetr-l.single_rgb").config, torch.device("cuda"))
+
+
+def bn_act_kernel_phase(torch):
+    """ConvBnAct's epilogue kernel at the main paths' shapes, against the
+    chain it replaces; returns the ``bn_act@<detector>`` entries (6 tiles)."""
+    from facedet_tpu_torch import YoloV11PoseDetectionModel
+    from facedet_tpu_torch.ops.kernels.bn_act import bn_act, bn_act_ref
+
+    def same(a, b):
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.contiguous().view(torch.int16 if a.dtype == torch.bfloat16 else torch.int32),
+            b.contiguous().view(torch.int16 if b.dtype == torch.bfloat16 else torch.int32))
+
+    def within_a_bf16_ulp(a, b):  # cuDNN's channels-last BatchNorm rounds the affine in another order
+        w = b.float()
+        ulp = torch.where(w == 0, torch.full_like(w, 2.0 ** -133), 2.0 ** (torch.floor(torch.log2(w.abs())) - 7))
+        differ = float((a.contiguous().view(torch.int16) != b.contiguous().view(torch.int16)).float().mean())
+        return a.dtype == b.dtype == torch.bfloat16 and bool(((a.float() - w).abs() <= ulp).all()) and differ <= 0.01
+
+    detectors = {
+        "yolo11n": lambda: YoloV11PoseDetectionModel(model_path=CKPT, scale="n", image_size=SLICE,
+                                                     dtype="bfloat16", device="cuda").model,
+        "rtdetr-l": lambda: published_rtdetr(torch).model,
+    }
+    results = {}
+    for name, make in detectors.items():
+        model = make()
+        for batch in (6, 1):
+            found = _epilogue_inputs(torch, model, batch)
+            check(len(found) == {"yolo11n": 87, "rtdetr-l": 122}[name],
+                  f"bn_act: {len(found)} epilogues in one {name} forward")
+            shapes, channels_last = set(), []
+            with torch.inference_mode():
+                for i, (mod, bn, out_dtype, act, x) in enumerate(found):
+                    shapes.add(tuple(x.shape[1:]))
+                    for stats in (bn, _wide_bn(torch, bn, i)):
+                        got = bn_act(x, stats, out_dtype, act)
+                        if x.is_contiguous():
+                            check(same(got, bn_act_ref(x, stats, out_dtype, act)),
+                                  f"bn_act differs from the chain at {name} {mod} {tuple(x.shape)}")
+                        else:
+                            check(same(got, bn_act_ref(x.contiguous(), stats, out_dtype, act)) and
+                                  within_a_bf16_ulp(got, bn_act_ref(x, stats, out_dtype, act)),
+                                  f"bn_act (channels-last) at {name} {mod} {tuple(x.shape)}")
+                    if not x.is_contiguous():
+                        channels_last.append(mod)
+            check(channels_last == (["model.12"] if name == "rtdetr-l" and batch > 1 else []),
+                  f"bn_act: channels-last conv outputs at {name} batch {batch}: {channels_last}")
+            elements = sum(x.numel() for *_, x in found)
+            nbytes = sum(x.numel() * (x.element_size() + torch.empty((), dtype=dt).element_size())
+                         for _, _, dt, _, x in found)
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ms = _graph_ms(torch, lambda: [bn_act(x, bn, dt, act) for _, bn, dt, act, x in found])  # noqa: B023
+            plain_ms = _graph_ms(torch, lambda: [bn_act_ref(x, bn, dt, act) for _, bn, dt, act, x in found])  # noqa: B023
+            print(f"bn_act {name} batch {batch}: {len(found)} epilogues of {len(shapes)} shapes, bit for bit the "
+                  f"chain (channels-last: {channels_last}); per forward: kernel {ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({nbytes / 1e6:.1f} MB, {elements / 1e6:.1f} M elements), chain {plain_ms:.4f} ms, "
+                  f"{nbytes / ms / 1e6:.0f} GB/s")
+            if batch == 6:
+                results[f"bn_act@{name}"] = {
+                    "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                    "library_ms": plain_ms,
+                }
+            del found
+        del model
+    torch.cuda.empty_cache()
     return results
 
 
@@ -693,10 +869,14 @@ def _profile(torch, run, wall_ms, n=3, images=1, label="bfloat16"):
 
 
 def _reset_launches():
+    """Sets the launch counts of the gathers and of bn_act to 0; returns the
+    gathers' (bn_act's are ops.kernels.bn_act.LAUNCHES)."""
+    from facedet_tpu_torch.ops.kernels import bn_act
     from facedet_tpu_torch.ops.kernels import tile_gather as tg
 
     for k in tg.LAUNCHES:
         tg.LAUNCHES[k] = 0
+    bn_act.LAUNCHES["bn_act"] = 0
     return tg.LAUNCHES
 
 
@@ -784,8 +964,13 @@ def main_path_phase(torch, models):
             folder = os.path.join(out, f"img{s}")
             for f in (f"img{s}_summary.txt", f"img{s}_detections.jpg"):
                 check(os.path.exists(os.path.join(folder, f)), f"the CLI wrote no {f}")
+    from facedet_tpu_torch.ops.kernels import bn_act
+
     counts = {k: launches[k] for k in ("gather_hwc", "gather_chw")}
-    print(f"launches on the single-image main path: {counts}")
+    counts["bn_act@yolo11n"] = bn_act.LAUNCHES["bn_act"]
+    check(counts["bn_act@yolo11n"] > 0, "the single-image main path did not launch bn_act")
+    print(f"launches on the single-image main path: {counts} (bn_act: eager forwards and graph captures; "
+          f"a replay launches without Python)")
     return counts
 
 
@@ -1664,8 +1849,19 @@ def rtdetr_phase(torch):
 
     print(f"query selection alone (stable sort of 8x8400 scores, cut to 300, two takes): "
           f"{event_ms(torch, select):.4f} ms per tile batch")
-    counts = {"gather_chw": launches["gather_chw"]}
-    print(f"launches on the RT-DETR main path: {counts}")
+    from facedet_tpu_torch.ops.kernels import bn_act
+
+    # the preset's convs are its own Conv-BatchNorm-ReLU blocks; the published
+    # RT-DETR-l's are ConvBnAct, whose epilogue is the kernel
+    published = published_rtdetr(torch)
+    bn_act.LAUNCHES["bn_act"] = 0
+    for im in images[:2]:
+        det = get_sliced_prediction(im, published, **SLICED_KW).detections.to_numpy()
+        check(np.isfinite(det["boxes"]).all(), "the published RT-DETR-l gave non-finite boxes")
+    counts = {"gather_chw": launches["gather_chw"], "bn_act@rtdetr-l": bn_act.LAUNCHES["bn_act"]}
+    check(counts["bn_act@rtdetr-l"] > 0, "the published RT-DETR-l's main path did not launch bn_act")
+    print(f"launches on the RT-DETR main path: {counts} (bn_act: the published RT-DETR-l on two photos, eager "
+          f"forwards and graph captures)")
     return counts
 
 
@@ -2836,10 +3032,26 @@ def int8_phase(torch, models):
                  label=f"single image {label}")
     from torch.profiler import ProfilerActivity, profile
 
+    from facedet_tpu_torch.engine.detector import ForwardGraphs
+
+    def no_capture(pre, tiles):
+        raise RuntimeError("counted eagerly")
+
     # a host-only window: it counts aten:: ops, which a lost device record
-    # cannot shorten, so it needs none of profile_kernels' markers
-    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU]) as prof:
-        get_sliced_prediction(images[0], q_serving, **SLICED_KW)
+    # cannot shorten, so it needs none of profile_kernels' markers; the
+    # forwards run eagerly, for a CUDA graph's replay runs no aten op and no
+    # hook. The hooks record the shape each int8 layer's GEMM takes.
+    shapes = []
+    hooks = [m.register_forward_hook(lambda mod, i, o: shapes.append((o.shape[0] * o.shape[2] * o.shape[3], mod)))
+             for m in q_serving.model.modules() if isinstance(m, Int8ConvBnAct)]
+    graphs, q_serving.forward_graphs = q_serving.forward_graphs, ForwardGraphs(capture=no_capture)
+    try:
+        with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU]) as prof:
+            get_sliced_prediction(images[0], q_serving, **SLICED_KW)
+    finally:
+        q_serving.forward_graphs = graphs
+        for h in hooks:
+            h.remove()
     ops = {e.key: e.count for e in prof.key_averages() if e.key in ("aten::_int_mm", "aten::convolution")}
     float_convs = sum(1 for m in q_serving.model.modules() if isinstance(m, torch.nn.Conv2d))
     print(f"int8 image: {ops} ({n} int8 layers, {float_convs} float convs, 2 forwards: the tiles and the full view)")
@@ -2847,12 +3059,7 @@ def int8_phase(torch, models):
           f"the int8 detector ran {ops}, not {2 * n} int8 GEMMs and {2 * float_convs} float convs")
 
     # the GEMMs alone: each int8 layer's _int_mm at the shape one image gives it
-    shapes = []
-    hooks = [m.register_forward_hook(lambda mod, i, o: shapes.append((o.shape[0] * o.shape[2] * o.shape[3], mod)))
-             for m in q_serving.model.modules() if isinstance(m, Int8ConvBnAct)]
-    get_sliced_prediction(images[0], q_serving, **SLICED_KW)
-    for h in hooks:
-        h.remove()
+    check(len(shapes) == 2 * n, f"the int8 layers' hooks saw {len(shapes)} GEMMs, not {2 * n}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     gemm_ms = ops_total = 0.0
     for rows, layer in shapes:
@@ -4004,7 +4211,7 @@ def main() -> int:
         for family, c in family_counts.items():
             check(c["gather_chw"] > 0, f"the {family} main path did not launch the CHW gather")
             for name, n in c.items():
-                counts[name] += n
+                counts[name] = counts.get(name, 0) + n
         print(f"launches on the evaluation paths (phases 21, 22): {family_counts['evaluation']}; int8 (phase 31): "
               f"{family_counts['int8']}; video (phase 32): {family_counts['video']}; ONNX export (phase 33): "
               f"{family_counts['onnx export']}; multi-device (phase 34): {family_counts['multi-device']}; golden "

@@ -95,10 +95,12 @@ def graph_key(tiles: torch.Tensor, conf_threshold: float, max_detections: int) -
 
 
 class _Graph:
-    """One captured chain: its static input, the graph, its static outputs."""
+    """One captured chain: its static input, the graph, its static outputs,
+    and the counters the captured chain added (``SPANS.add``), which each
+    replay adds again."""
 
-    def __init__(self, graph, tiles: torch.Tensor, out):
-        self.graph, self.tiles, self.out = graph, tiles, out
+    def __init__(self, graph, tiles: torch.Tensor, out, counts: dict):
+        self.graph, self.tiles, self.out, self.counts = graph, tiles, out, counts
 
     def __call__(self, tiles: torch.Tensor):
         self.tiles.copy_(tiles)
@@ -120,6 +122,13 @@ class ForwardGraphs:
     hold the weights of one model by pointer, so a call for another model
     object empties the cache first, and the owner empties it where it
     replaces modules inside its model.
+
+    What the chain counts through ``SPANS.add`` (the BatchNorm epilogues of
+    ``ops/kernels/bn_act.py``) goes into the call's ``detector`` span once a
+    call: an eager run counts itself; a capture keeps the counts of the
+    captured run alone (``SPANS.tally``), and the capture's first replay and
+    every later one add them, for no Python runs in a replay. A capture is a
+    graph with a ``counts`` dict.
 
     ``__call__`` holds ``lock`` until the caller's ``post`` returns, for
     the graph's outputs are overwritten by its next replay; ``post`` must
@@ -177,9 +186,10 @@ class ForwardGraphs:
         if graph is not None:
             self._graphs.move_to_end(key)
             span.add("graph_replays")
-            return graph(tiles)
+            return self._replay(graph, tiles, span)
         try:
-            graph = self._capture(pre, tiles)
+            with SPANS.tally():  # the capture's own runs
+                graph = self._capture(pre, tiles)
         except RuntimeError:
             self._eager.add(key)
             span.add("graph_eager")
@@ -188,6 +198,12 @@ class ForwardGraphs:
         if len(self._graphs) > self.MAX_KEYS:
             self._graphs.popitem(last=False)
         span.add("graph_captures")
+        return self._replay(graph, tiles, span)
+
+    @staticmethod
+    def _replay(graph, tiles, span):
+        for name, n in graph.counts.items():
+            span.add(name, n)
         return graph(tiles)
 
     def _capture_cuda(self, pre: Callable, tiles: torch.Tensor) -> _Graph:
@@ -203,11 +219,12 @@ class ForwardGraphs:
                 pre(static)
                 graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
                 try:
-                    out = pre(static)
+                    with SPANS.tally() as counts:
+                        out = pre(static)
                 finally:
                     graph.capture_end()
             current.wait_stream(side)
-        return _Graph(graph, static, out)
+        return _Graph(graph, static, out, counts)
 
 
 class DetectionModel:

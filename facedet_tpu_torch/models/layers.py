@@ -10,6 +10,10 @@ Parity notes: BatchNorm eps is 1e-3 and, in train mode, flax's statistics
 frameworks; max-pool pads with -inf; in ``PSAAttention`` the qkv channels are
 split per head as ``[heads, 2*key_dim + head_dim]``, as in the NHWC original.
 
+On the card in eval mode, ``ConvBnAct``'s BatchNorm, cast and activation run
+as one CUDA kernel (ops/kernels/bn_act.py), the same arithmetic in the same
+dtypes; on the CPU and in train mode they run as PyTorch ops.
+
 ``Int8ConvBnAct`` is the int8 serving form of ``ConvBnAct`` (the reference's
 ``ConvBnAct._int8_forward``); models/quantize.py swaps it in, and
 models/from_jax.py builds it where a flax tree holds a ``qkernel``.
@@ -31,6 +35,9 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from facedet_tpu_torch.ops.kernels.bn_act import activate, bn_act, bn_act_ref
+from facedet_tpu_torch.utils.profiling import SPANS
 
 __all__ = [
     "FlaxBatchNorm2d",
@@ -127,14 +134,6 @@ def sync_batch_statistics_(model: nn.Module, group) -> nn.Module:
     return model
 
 
-def activate(x: torch.Tensor, act) -> torch.Tensor:
-    """``ConvBnAct``'s activation: ``True`` SiLU, ``"relu"`` ReLU (the
-    HGNetv2 backbone's), ``False`` none."""
-    if act == "relu":
-        return F.relu(x)
-    return F.silu(x) if act else x
-
-
 class ConvBnAct(nn.Module):
     """Conv2d(bias=False) + BatchNorm (flax's, momentum 0.97) + SiLU, or
     ReLU (``act="relu"``), or nothing (``act=False``).
@@ -143,7 +142,10 @@ class ConvBnAct(nn.Module):
     keeps float32 statistics and normalises in float32, as flax does (the
     conv output promotes against the float32 statistics), then casts to
     ``bn_dtype``. ``YoloV11.set_dtypes`` sets both. ``padding`` is
-    ``kernel // 2`` unless given (HGNetv2's 2x2 stem convs take 0)."""
+    ``kernel // 2`` unless given (HGNetv2's 2x2 stem convs take 0). On a
+    CUDA tensor in eval mode the BatchNorm, the cast and the activation are
+    one kernel (``bn_act``); on the CPU and in train mode, PyTorch ops
+    (``bn_act_ref``)."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 1, stride: int = 1, groups: int = 1, act=True,
                  padding: int | None = None):
@@ -158,8 +160,8 @@ class ConvBnAct(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x.to(self.conv.weight.dtype))
-        x = self.bn(x.float()).to(self.bn_dtype)
-        return activate(x, self.act)
+        epilogue = bn_act_ref if self.training else bn_act
+        return epilogue(x, self.bn, self.bn_dtype, self.act)
 
 
 def int8_matmul(a: torch.Tensor, w_nk: torch.Tensor, n: int) -> torch.Tensor:
@@ -279,6 +281,7 @@ class Int8ConvBnAct(nn.Module):
         torch.clamp(q, -127.0, 127.0, out=q)
         xq = q.to(torch.int8)
         acc = int8_conv(xq, self.gemm_weight, k, s, self.qkernel.shape[0] // self.groups)
+        SPANS.add("epilogue_plain")
         y = activate((acc.reshape(-1, acc.shape[-1]) * self.oscale + self.obias).to(self.bn_dtype), self.act)
         return y.reshape(acc.shape).permute(0, 3, 1, 2)
 

@@ -54,6 +54,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from facedet_tpu_torch.models.layers import ConvBnAct, FlaxBatchNorm2d, Int8ConvBnAct, upsample2x
+from facedet_tpu_torch.ops.kernels.bn_act import bn_act, bn_act_ref
 
 __all__ = [
     "RtDetrLConfig",
@@ -264,13 +265,16 @@ class Mlp(nn.Module):
 
 class ProjBn(nn.Sequential):
     """``input_proj.l``: a 1x1 conv without bias (``0``) and a BatchNorm
-    (``1``), normalised in float32."""
+    (``1``), normalised in float32, with a float32 output: on a CUDA tensor
+    in eval mode one kernel, as ``ConvBnAct``'s epilogue."""
 
     def __init__(self, cin: int, c: int):
         super().__init__(nn.Conv2d(cin, c, 1, bias=False), FlaxBatchNorm2d(c, eps=1e-3, flax_momentum=0.97))
 
     def forward(self, x):
-        return self[1](_in(self[0], x).float())
+        x = _in(self[0], x)
+        epilogue = bn_act_ref if self.training else bn_act
+        return epilogue(x, self[1], torch.float32, False)
 
 
 class MsDeformAttn(nn.Module):

@@ -24,14 +24,18 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-# C signatures: pointers and the stream are c_void_p, ints c_int, and every
-# function returns the cudaError_t of its launch.
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signatures: pointers and the stream are c_void_p, ints c_int (c_longlong
+# where 32 bits may not hold a count), floats c_float, and every function
+# returns the cudaError_t of its launch.
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES = {
     "tile_gather": {
         "facedet_tile_gather_hwc": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "facedet_tile_gather_chw": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         "facedet_tile_gather_chw_batched": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "bn_act": {
+        "facedet_bn_act": [_P, _P, _P, _P, _P, _P, _F, _L, _I, _L, _I, _I, _I, _I, _I, _P],
     },
 }
 

@@ -133,16 +133,49 @@ class SpanRecorder:
     ``request`` joins the request of the innermost span open on its thread,
     or starts a new request; a span of a worker thread joins a request by
     its id (``new_request``, ``current_request``). ``tracing`` is set while
-    ``trace()`` is open: each span is then a ``torch.profiler`` range too."""
+    ``trace()`` is open: each span is then a ``torch.profiler`` range too.
+    Code that knows no span counts through ``add``, into the innermost span
+    open on its thread, or into a ``tally`` opened around it."""
 
     def __init__(self, capacity: int = 65536):
         self.ring: collections.deque = collections.deque(maxlen=capacity)
         self.tracing = False
         self._ids = itertools.count(1)
         self._stacks: dict[int, list] = {}  # thread -> its open spans, innermost last
+        self._tallies: dict[int, list] = {}  # thread -> its open tallies, innermost last
 
     def span(self, name: str, request: Optional[int] = None) -> Span:
         return Span(self, name, request)
+
+    def add(self, counter: str, n: int = 1) -> None:
+        """Add ``n`` to ``counter`` of the innermost tally open on this
+        thread, else of the innermost span open on it; nothing where neither
+        is open."""
+        tid = _thread_id()
+        tallies = self._tallies.get(tid)
+        if tallies:
+            tallies[-1][counter] = tallies[-1].get(counter, 0) + n
+            return
+        stack = self._stacks.get(tid)
+        if stack:
+            stack[-1].add(counter, n)
+
+    @contextlib.contextmanager
+    def tally(self):
+        """Inside the block, what ``add`` counts on this thread goes into the
+        dict yielded, not into the span open around it: the counts of a chain
+        captured into a CUDA graph, which its replays add, where no Python
+        runs."""
+        tid = _thread_id()
+        counts: dict = {}
+        self._tallies.setdefault(tid, []).append(counts)
+        try:
+            yield counts
+        finally:
+            tallies = self._tallies[tid]
+            tallies.pop()
+            if not tallies:
+                del self._tallies[tid]
 
     def new_request(self) -> int:
         """A request id for spans that several threads open."""
@@ -274,6 +307,7 @@ PROFILE_GROUPS = [
     ("softmax", ("softmax",)),
     ("gather, scatter and scan (row takes, sparse unpack)", ("scan", "scatter")),
     ("layout transposes inside cuDNN", ("nchwtonhwc", "nhwctonchw")),
+    ("BatchNorm epilogue kernel (bn_act)", ("bn_act",)),
     ("batch norm", ("bn_fw", "batch_norm")),
     ("convolution and matmul", ("conv", "xmma", "gemm", "implicit", "sm80_", "sm90_", "cutlass")),
     ("copies and casts", ("copy",)),

@@ -24,6 +24,7 @@ from facedet_tpu_torch import YoloV11PoseDetectionModel, get_sliced_prediction
 from facedet_tpu_torch.core.detections import Detections
 from facedet_tpu_torch.engine.detector import ForwardGraphs, _exact_float32, graph_key
 from facedet_tpu_torch.models import quantize as Q
+from facedet_tpu_torch.models.layers import ConvBnAct, Int8ConvBnAct
 from facedet_tpu_torch.models.yolo_decode import decode_predictions, decode_to_detections
 from facedet_tpu_torch.ops.nms import nms
 from facedet_tpu_torch.utils.profiling import SPANS
@@ -64,6 +65,18 @@ def _detector_counts():
     return [s.counts for s in SPANS.spans() if s.name == "detector"]
 
 
+def _epilogues(det):
+    """The BatchNorm epilogues one forward of ``det`` counts: each
+    ``ConvBnAct``'s through the kernel on the card and through PyTorch ops
+    elsewhere, each ``Int8ConvBnAct``'s through PyTorch ops."""
+    mods = list(det.model.modules())
+    fused = sum(isinstance(m, ConvBnAct) for m in mods)
+    plain = sum(isinstance(m, Int8ConvBnAct) for m in mods)
+    if det.device.type != "cuda":
+        fused, plain = 0, fused + plain
+    return {k: n for k, n in (("epilogue_kernel", fused), ("epilogue_plain", plain)) if n}
+
+
 @pytest.fixture(scope="module")
 def cpu_model():
     return YoloV11PoseDetectionModel(model_path=CKPT, scale="n", dtype="float32", confidence_threshold=0.25,
@@ -72,11 +85,13 @@ def cpu_model():
 
 class StubGraph:
     """A capture's stand-in: a static input and a static output that every
-    call overwrites, as a replayed CUDA graph does."""
+    call overwrites, as a replayed CUDA graph does. Its ``pre`` runs at each
+    call and counts there, so it brings no counts of its own."""
 
     def __init__(self, pre, tiles):
         self.pre, self.tiles = pre, tiles.clone()
         self.out = pre(self.tiles)
+        self.counts = {}
 
     def __call__(self, tiles):
         self.tiles.copy_(tiles)
@@ -127,7 +142,8 @@ def test_cpu_forward_runs_eagerly_under_a_detector_span(cpu_model, layout):
     assert int(got.valid.sum()) > 0
     spans = SPANS.spans()
     dets = [s for s in spans if s.name == "detector"]
-    assert [s.counts for s in dets] == [{"graph_eager": 1}] * 2
+    assert [s.counts for s in dets] == [{"graph_eager": 1, "epilogue_plain": 87}] * 2
+    assert _epilogues(cpu_model) == {"epilogue_plain": 87}
     assert all(s.parent is outer for s in dets)
     # the NMS follows its detector span, a child of the same forward span
     children = [s.name for s in sorted(spans, key=lambda s: s.start_ns) if s.parent is outer]
@@ -304,7 +320,9 @@ def test_replay_is_bitwise_the_eager_chain(cuda, kind, shape):
     SPANS.ring.clear()
     got = [det.tile_forward_nchw(t, 0.05) for t in (first, second, first)]
     torch.cuda.synchronize()
-    assert _detector_counts() == [{"graph_captures": 1}, {"graph_replays": 1}, {"graph_replays": 1}]
+    e = _epilogues(det)
+    assert sum(e.values()) == 87 and ("epilogue_plain" in e) == (kind == "int8")
+    assert _detector_counts() == [{"graph_captures": 1, **e}, {"graph_replays": 1, **e}, {"graph_replays": 1, **e}]
     want = [_eager(det, t, 0.05) for t in (first, second)]
     assert _equal(got[0], want[0]) and _equal(got[1], want[1]) and _equal(got[2], want[0])
     assert int(want[0].valid.sum()) > 0
@@ -355,7 +373,8 @@ def test_capture_succeeds_while_another_thread_copies_on_its_own_stream(cuda):
         stop.set()
         worker.join(timeout=60)
     assert not worker.is_alive() and errors == []
-    assert _detector_counts() == [{"graph_captures": 1}, {"graph_replays": 1}]
+    e = _epilogues(det)
+    assert _detector_counts() == [{"graph_captures": 1, **e}, {"graph_replays": 1, **e}]
     want = _eager(det, tiles, 0.05)
     assert _equal(got, want) and _equal(again, want)
 
@@ -371,12 +390,13 @@ def test_sliced_prediction_answers_as_the_eager_pipeline(cuda, monkeypatch):
     SPANS.ring.clear()
     graphed = [get_sliced_prediction(image, det, **kw).detections for _ in range(3)]
     counts = _detector_counts()
-    assert counts[:2] == [{"graph_captures": 1}] * 2 and counts[2:] == [{"graph_replays": 1}] * 4
+    e = _epilogues(det)
+    assert counts[:2] == [{"graph_captures": 1, **e}] * 2 and counts[2:] == [{"graph_replays": 1, **e}] * 4
     assert len(det.forward_graphs) == 2
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
     SPANS.ring.clear()
     eager = get_sliced_prediction(image, det, **kw).detections
-    assert _detector_counts() == [{"graph_eager": 1}] * 2
+    assert _detector_counts() == [{"graph_eager": 1, **e}] * 2
     for got in graphed:
         assert isinstance(got, Detections) and _equal(got, eager)
     assert int(eager.valid.sum()) > 0

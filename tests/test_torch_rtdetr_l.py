@@ -44,8 +44,8 @@ from facedet_tpu_torch.engine.detector import ForwardGraphs, graph_key
 from facedet_tpu_torch.engine.rtdetr_wrapper import RtDetrDetectionModel
 from facedet_tpu_torch.models import quantize as Q
 from facedet_tpu_torch.models.layers import ConvBnAct, Int8ConvBnAct
-from facedet_tpu_torch.models.rtdetr_l import (RTDETR_L_VARIANTS, RtDetrL, generate_anchors, load_state,
-                                               sincos_2d)
+from facedet_tpu_torch.models.rtdetr_l import (RTDETR_L_VARIANTS, ProjBn, RtDetrL, generate_anchors,
+                                               load_state, sincos_2d)
 from facedet_tpu_torch.utils.profiling import SPANS
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -86,6 +86,12 @@ def tiny_params(tiny_path):
 def _photos(n, size=SIZE, seed=3):
     arr = np.stack([inputs.photo(seed, i, (size, size), 3, (size // 10, size // 5)) for i in range(n)])
     return torch.from_numpy(arr).permute(0, 3, 1, 2).float() / 255.0
+
+
+def _epilogues(model) -> int:
+    """The BatchNorm epilogues of one forward: every ``ConvBnAct`` and
+    ``ProjBn``."""
+    return sum(isinstance(m, (ConvBnAct, ProjBn)) for m in model.modules())
 
 
 def _detector(path, dtype="float32", **kw):
@@ -238,9 +244,11 @@ def test_sliced_prediction_matches_the_references_sliced_answer(tiny_path, tiny_
                                 postprocess_match_metric="IOS", postprocess_match_threshold=0.5)
     spans = SPANS.spans()
     detector = [s.counts for s in spans if s.name == "detector"]
-    # six tiles of 256 and the standard pass: queries x heads x levels x points x layers each
-    assert detector == [{"deform_samples": 6 * 30 * 4 * 3 * 4 * 2, "graph_eager": 1},
-                        {"deform_samples": 30 * 4 * 3 * 4 * 2, "graph_eager": 1}]
+    # six tiles of 256 and the standard pass: queries x heads x levels x points x layers each; every
+    # BatchNorm epilogue through PyTorch ops on the CPU
+    e = _epilogues(det.model)
+    assert detector == [{"deform_samples": 6 * 30 * 4 * 3 * 4 * 2, "graph_eager": 1, "epilogue_plain": e},
+                        {"deform_samples": 30 * 4 * 3 * 4 * 2, "graph_eager": 1, "epilogue_plain": e}]
     # no per-tile NMS: the one nms span is the merge's
     assert [s.parent.name for s in spans if s.name == "nms"] == ["merge"]
     v = res.detections.valid.numpy().astype(bool)
@@ -382,9 +390,10 @@ def test_replay_is_bitwise_the_eager_chain(cuda, batch, monkeypatch):
     got = [det.tile_forward_nchw(t, 0.05).map(torch.clone) for t in (x[0], x[1], x[0])]
     torch.cuda.synchronize()
     counts = [s.counts for s in SPANS.spans() if s.name == "detector"]
-    samples = batch * 300 * 8 * 3 * 4 * 6
-    assert counts == [{"deform_samples": samples, "graph_captures": 1}] + [{"deform_samples": samples,
-                                                                            "graph_replays": 1}] * 2
+    samples, e = batch * 300 * 8 * 3 * 4 * 6, _epilogues(det.model)
+    assert e == 119 + 3  # every ConvBnAct and ProjBn of the published model, through the kernel
+    assert counts == [{"deform_samples": samples, "graph_captures": 1, "epilogue_kernel": e}] + [
+        {"deform_samples": samples, "graph_replays": 1, "epilogue_kernel": e}] * 2
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
     want = [det.tile_forward_nchw(t, 0.05) for t in x]
     for g, w in zip(got, want + want[:1]):

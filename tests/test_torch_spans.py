@@ -77,8 +77,8 @@ def test_a_request_nests_its_stages_and_the_fixpoints(model, image):
     for name in ("forward.tiles", "forward.full"):
         assert _children(spans, by_name[name]) == ["detector", "nms"], name
     assert _children(spans, by_name["merge"]) == ["nms"]
-    for det in (s for s in spans if s.name == "detector"):
-        assert det.counts == {"graph_eager": 1} and _children(spans, det) == []
+    for det in (s for s in spans if s.name == "detector"):  # 87 ConvBnAct epilogues through PyTorch ops
+        assert det.counts == {"graph_eager": 1, "epilogue_plain": 87} and _children(spans, det) == []
     for nms in (s for s in spans if s.name == "nms"):
         rounds = nms.counts["nms_rounds"]
         assert rounds >= 1 and _children(spans, nms) == ["readback"] * rounds
