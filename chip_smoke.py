@@ -336,8 +336,10 @@ KERNELS = [
     },
 ]
 KERNELS.append({
-    # the single-image CHW gather at the shape the enhance-first pipeline
-    # gives it: a 3x2048x3072 canvas, a 4x4 plan bucketed to 32 tiles of 512x768
+    # the CHW gather at the shape the enhance-first pipeline gives it: a
+    # 3x2048x3072 canvas, a 4x4 plan bucketed to 32 tiles of 512x768 (timed
+    # through the single entry; the pipeline's batch of one takes the batched
+    # entry at B=1, the same kernel and grid)
     "name": "gather_chw@2048x3072",
     "route": "cuda",
     "source": "facedet_tpu_torch/csrc/tile_gather.cu",
@@ -880,6 +882,13 @@ def _reset_launches():
     return tg.LAUNCHES
 
 
+def _chw_gathers(launches) -> int:
+    """CHW gather launches through either entry: a sliced image runs as a
+    batch of one (engine/predict._dispatch_sliced), so it takes the batched
+    entry at B=1, and the enhancer's window gather takes the single one."""
+    return launches.get("gather_chw", 0) + launches.get("gather_chw_batched", 0)
+
+
 def load_models():
     """The golden yolo11n: float32 on the CPU and on the card (the parity
     pair) and the bfloat16 serving model on the card."""
@@ -913,7 +922,7 @@ def main_path_phase(torch, models):
     launches = _reset_launches()
 
     got = get_sliced_prediction(image, models["cuda"], **kw)
-    check(launches["gather_chw"] > 0, "get_sliced_prediction did not launch the CHW gather")
+    check(_chw_gathers(launches) > 0, "get_sliced_prediction did not launch the CHW gather")
     _compare(got.detections.to_numpy(), want, "get_sliced_prediction float32")
     check(len(want["boxes"]) > 0, "the golden model found nothing on the synthetic image")
 
@@ -966,7 +975,7 @@ def main_path_phase(torch, models):
                 check(os.path.exists(os.path.join(folder, f)), f"the CLI wrote no {f}")
     from facedet_tpu_torch.ops.kernels import bn_act
 
-    counts = {k: launches[k] for k in ("gather_hwc", "gather_chw")}
+    counts = {k: launches[k] for k in ("gather_hwc", "gather_chw", "gather_chw_batched")}
     counts["bn_act@yolo11n"] = bn_act.LAUNCHES["bn_act"]
     check(counts["bn_act@yolo11n"] > 0, "the single-image main path did not launch bn_act")
     print(f"launches on the single-image main path: {counts} (bn_act: eager forwards and graph captures; "
@@ -987,7 +996,7 @@ def ingest_phase(torch, models):
     from facedet_tpu_torch import get_sliced_prediction
     from facedet_tpu_torch.engine import predict as P
     from facedet_tpu_torch.ops.color import rgb_to_yuv420
-    from facedet_tpu_torch.ops.jpeg_dct import encode_dct420
+    from facedet_tpu_torch.ops.jpeg_dct import encode_dct420, wire_unpack_dct420s
 
     image = _photo(100)
     kw = {k: v for k, v in SERVING_KW.items() if k != "fetch_capacity"}
@@ -1001,10 +1010,10 @@ def ingest_phase(torch, models):
         _compare(got.detections.to_numpy(), want, f"get_sliced_prediction float32 {fmt}")
     # the sparse wire is lossless: it rebuilds the planes the dense format uploads
     dev = torch.device("cuda")
-    canvases = {}
-    for fmt in ("dct420", "dct420s"):
-        staged = P._stage_single_host(coded, fmt, *CANVAS)
-        canvases[fmt] = P.decode_canvas(tuple(P._to_device(a, dev) for a in staged), fmt, *CANVAS, torch.float32)
+    dense = P._to_device(P._stage_batch_host([coded], "dct420", *CANVAS), dev)
+    wire = P._to_device(P._stage_batch_host([coded], "dct420s", *CANVAS), dev)
+    planes = {"dct420": dense, "dct420s": wire_unpack_dct420s(wire, 1, *CANVAS)}
+    canvases = {fmt: P.decode_canvas(p, fmt, *CANVAS, torch.float32) for fmt, p in planes.items()}
     check(canvases["dct420"].is_cuda and torch.equal(canvases["dct420"], canvases["dct420s"]),
           "dct420s and dct420 decode to different canvases on the card")
     print(f"dct420s canvas equals the dct420 canvas bit for bit: {tuple(canvases['dct420'].shape)} float32")
@@ -1416,10 +1425,10 @@ def pipeline_v2_phase(torch, models, f32, served):
         return real_sliced(image, *a, **k)
 
     def gather(canvas, offsets, sh, sw):
-        before = tg.LAUNCHES["gather_chw"]
+        before = _chw_gathers(tg.LAUNCHES)
         out = real_gather(canvas, offsets, sh, sw)
         seen["canvases"].append((tuple(canvas.shape), canvas.device.type, len(offsets), sh, sw,
-                                 tg.LAUNCHES["gather_chw"] - before))
+                                 _chw_gathers(tg.LAUNCHES) - before))
         return out
 
     pipelines.get_sliced_prediction, predict.gather_tiles_chw = sliced, gather
@@ -1439,7 +1448,7 @@ def pipeline_v2_phase(torch, models, f32, served):
     for kind, device, shape, dtype in seen["inputs"]:
         check(kind == "Tensor" and device.type == "cuda" and shape == (*ENHANCED, 3) and dtype == torch.float32,
               f"detection took the enhanced image as {kind} on {device}, {shape}, {dtype}")
-    want_canvas = ((3, *ENHANCED), "cuda", len(offs), sh, sw, 1)
+    want_canvas = ((1, 3, *ENHANCED), "cuda", len(offs), sh, sw, 1)
     check(len(seen["canvases"]) == len(images) and all(c == want_canvas for c in seen["canvases"]),
           f"the gather ran on {seen['canvases'][:2]}, expected {want_canvas} once per image")
     n_launches = sum(c[-1] for c in seen["canvases"])
@@ -1451,8 +1460,8 @@ def pipeline_v2_phase(torch, models, f32, served):
     check(res.image.shape == (*CANVAS, 3) and res.enhanced_image.shape == (*ENHANCED, 3) and
           res.enhanced_image.dtype == np.uint8, f"v2 images: {res.image.shape}, {res.enhanced_image.shape}")
     print(f"the enhanced {ENHANCED[0]}x{ENHANCED[1]} tensor went into get_sliced_prediction on the card (float32, "
-          f"never on the host before the uint8 display fetch); gather_chw launched {n_launches} times on a "
-          f"3x{ENHANCED[0]}x{ENHANCED[1]} canvas, {len(offs)} tiles of {sh}x{sw}")
+          f"never on the host before the uint8 display fetch); the CHW gather launched {n_launches} times on a "
+          f"1x3x{ENHANCED[0]}x{ENHANCED[1]} canvas, {len(offs)} tiles of {sh}x{sw}")
     e, t = statistics.median(enhance_ms), statistics.median(total_ms)
     print(f"enhance_first_pipeline bfloat16 1024x1536: median {t:.2f} ms/image over {len(total_ms)} images after 2 "
           f"of warm-up (min {min(total_ms):.2f}, max {max(total_ms):.2f}): enhance {e:.2f} ms, detection, mapping "
@@ -1694,9 +1703,9 @@ def scrfd_fidelity_phase(torch):
     check(torch.equal(pair["cuda"].model.head.l2_kps.weight.cpu(), kernel), "SCRFD does not hold its golden weights")
     image = _photo(500)
     want = get_sliced_prediction(image, pair["cpu"], **SLICED_KW).detections.to_numpy()
-    before = tg.LAUNCHES["gather_chw"]
+    before = _chw_gathers(tg.LAUNCHES)
     got = get_sliced_prediction(image, pair["cuda"], **SLICED_KW)
-    check(tg.LAUNCHES["gather_chw"] == before + 1, "SCRFD's get_sliced_prediction did not launch the CHW gather once")
+    check(_chw_gathers(tg.LAUNCHES) == before + 1, "SCRFD's get_sliced_prediction did not launch the CHW gather once")
     check(len(want["boxes"]) > 0, "the golden SCRFD found nothing on the synthetic image")
     _compare(got.detections.to_numpy(), want, "SCRFD get_sliced_prediction float32")
 
@@ -1729,10 +1738,11 @@ def scrfd_main_path_phase(torch):
     ms = statistics.median(times)
     print(f"SCRFD get_sliced_prediction bfloat16, 1024x1536, 6+1 tiles of 640: median {ms:.3f} ms/image over "
           f"{len(times)} images (min {min(times):.3f}, max {max(times):.3f}); detections per image {found}")
-    check(launches["gather_chw"] == len(images), f"{launches['gather_chw']} CHW gathers for {len(images)} images")
+    check(_chw_gathers(launches) == len(images), f"{_chw_gathers(launches)} CHW gathers for {len(images)} images")
     _profile(torch, lambda: get_sliced_prediction(images[0], model, **SLICED_KW), ms, label="SCRFD bfloat16")
+    before = launches["gather_chw_batched"]
     batch = get_sliced_prediction_batch(images[:4], model, **SLICED_KW)
-    check(len(batch) == 4 and launches["gather_chw_batched"] == 1, "SCRFD's bfloat16 batch of 4")
+    check(len(batch) == 4 and launches["gather_chw_batched"] == before + 1, "SCRFD's bfloat16 batch of 4")
     counts = {k: launches[k] for k in ("gather_chw", "gather_chw_batched")}
     print(f"launches on the SCRFD main path: {counts}")
 
@@ -1821,7 +1831,7 @@ def rtdetr_phase(torch):
     print(f"RT-DETR get_sliced_prediction bfloat16, 1024x1536, 6+1 tiles of 640 (7 x 8400 encoder tokens, 7 x 300 "
           f"queries): median {ms:.3f} ms/image over {len(times)} images (min {min(times):.3f}, max {max(times):.3f}); "
           f"peak memory {peak:.2f} GB; detections per image {found} (random weights: the count says nothing)")
-    check(launches["gather_chw"] == len(images), f"{launches['gather_chw']} CHW gathers for {len(images)} images")
+    check(_chw_gathers(launches) == len(images), f"{_chw_gathers(launches)} CHW gathers for {len(images)} images")
     _profile(torch, lambda: get_sliced_prediction(images[0], model, **SLICED_KW), ms, label="RT-DETR bfloat16")
     # where the wall time goes: the detector alone on the 8-tile batch
     batch = torch.rand(8, 3, SLICE, SLICE, device="cuda").to(torch.bfloat16)
@@ -1858,7 +1868,8 @@ def rtdetr_phase(torch):
     for im in images[:2]:
         det = get_sliced_prediction(im, published, **SLICED_KW).detections.to_numpy()
         check(np.isfinite(det["boxes"]).all(), "the published RT-DETR-l gave non-finite boxes")
-    counts = {"gather_chw": launches["gather_chw"], "bn_act@rtdetr-l": bn_act.LAUNCHES["bn_act"]}
+    counts = {k: launches[k] for k in ("gather_chw", "gather_chw_batched")}
+    counts["bn_act@rtdetr-l"] = bn_act.LAUNCHES["bn_act"]
     check(counts["bn_act@rtdetr-l"] > 0, "the published RT-DETR-l's main path did not launch bn_act")
     print(f"launches on the RT-DETR main path: {counts} (bn_act: the published RT-DETR-l on two photos, eager "
           f"forwards and graph captures)")
@@ -1898,7 +1909,7 @@ def onnx_phase(torch, scrfd_pair, models):
                                        confidence_threshold=models["cuda"].confidence_threshold)
     check(all(v.is_cuda for m in (scrfd_onnx, yolo_onnx) for v in m.variables["params"].values()),
           "an imported graph's weights are not on the card")
-    before = tg.LAUNCHES["gather_chw"]
+    before = _chw_gathers(tg.LAUNCHES)
     want = get_sliced_prediction(images[0], scrfd_pair["cuda"], **SLICED_KW).detections.to_numpy()
     check(len(want["boxes"]) > 0, "the native SCRFD route found nothing")
     got = get_sliced_prediction(images[0], scrfd_onnx, **SLICED_KW).detections.to_numpy()
@@ -1907,7 +1918,7 @@ def onnx_phase(torch, scrfd_pair, models):
     got = get_sliced_prediction(images[0], yolo_onnx, **SLICED_KW).detections.to_numpy()
     check(len(want["boxes"]) > 0, "the native yolo11n route found nothing")
     _compare(got, want, "yolo11n .onnx (ultralytics head)", ".onnx route vs YoloV11PoseDetectionModel")
-    check(tg.LAUNCHES["gather_chw"] == before + 4, "an ONNX route did not go through the CHW gather")
+    check(_chw_gathers(tg.LAUNCHES) == before + 4, "an ONNX route did not go through the CHW gather")
     timed(scrfd_pair["cuda"], "SCRFD native float32")
     timed(scrfd_onnx, "SCRFD .onnx, batch 1, a loop over tiles")
     timed(models["cuda"], "yolo11n native float32")
@@ -2120,8 +2131,8 @@ def official_eval_phase(torch, models, served, ev, cli_results):
     finally:
         del enh.enhance_array
     check(results["SAHI uniform 640/0.2"]["aps"]["all"] > 0.05, "the SAHI-uniform mode matched no face")
-    count = launches["gather_chw"]
-    check(count > 0, "the evaluator's modes did not launch the CHW gather")
+    count = {k: launches[k] for k in _no_launches()}
+    check(_chw_gathers(count) > 0, "the evaluator's modes did not launch the CHW gather")
     cli = cli_results["eval_official"]
     want = results["SAHI uniform 640/0.2"]
     diff = abs(cli["aps"]["all"] - want["aps"]["all"])
@@ -2132,7 +2143,7 @@ def official_eval_phase(torch, models, served, ev, cli_results):
     return det, count
 
 
-def dual_tuning_phase(torch, det, ev, cli_results) -> int:
+def dual_tuning_phase(torch, det, ev, cli_results) -> dict:
     """Returns the gather launches of the dual evaluator and the grid."""
     phase("22 dual evaluator and the SAHI tuning grid (launch counts from 0)")
     from facedet_tpu_torch.apps.eval_dual_cli import make_predict_fn
@@ -2168,8 +2179,8 @@ def dual_tuning_phase(torch, det, ev, cli_results) -> int:
     print(f"tuning grid 'quick' on 2 images: 4 configurations, errors {errors}; best slice {best['slice_size']} "
           f"overlap {best['overlap']} mAP {best['map']:.4f} mAP50 {best['map50']:.4f}, "
           f"{sum(r['seconds'] for r in grid['results']):.2f} s in all")
-    count = launches["gather_chw"]
-    check(count > 0, "the dual evaluator and the grid did not launch the CHW gather")
+    count = {k: launches[k] for k in _no_launches()}
+    check(_chw_gathers(count) > 0, "the dual evaluator and the grid did not launch the CHW gather")
     return count
 
 
@@ -3026,7 +3037,7 @@ def int8_phase(torch, models):
     for label, ms in per_image.items():
         print(f"get_sliced_prediction {label}, 1024x1536, 6+1 tiles of {SLICE}: median {ms:.3f} ms/image over "
               f"{len(times[label])} images (min {min(times[label]):.3f}, max {max(times[label]):.3f}); CHW gather "
-              f"launches {single[label]['gather_chw'] / (2 * len(images)):.2f} per image")
+              f"launches {_chw_gathers(single[label]) / (2 * len(images)):.2f} per image")
     for label, model in (("bfloat16", serving), ("int8", q_serving)):
         _profile(torch, lambda: get_sliced_prediction(images[0], model, **SLICED_KW), per_image[label],  # noqa: B023
                  label=f"single image {label}")
@@ -3109,7 +3120,7 @@ def int8_phase(torch, models):
     print(f"launches of the int8 runs alone: the float32 card detector on 1 image {own['card']}, the bfloat16 "
           f"single image on {2 * len(images)} images {own['single']}, the stream on {2 * 3 * SERVING_BATCH} images "
           f"{own['stream']}")
-    check(own["card"]["gather_chw"] > 0 and own["single"]["gather_chw"] > 0,
+    check(_chw_gathers(own["card"]) > 0 and _chw_gathers(own["single"]) > 0,
           f"an int8 single-image run did not launch the CHW gather: {own}")
     check(own["stream"]["gather_chw_batched"] > 0, f"the int8 stream did not launch the batched gather: {own['stream']}")
     return {k: sum(c[k] for c in own.values()) for k in _no_launches()}
@@ -3182,7 +3193,7 @@ def video_phase(torch, models, root):
         check(False, "detect_webcam without a camera did not raise")
     print(f"launches of the video runs alone: predict() rgb {own['rgb']}, dct420 {own['dct420']}, detect_video "
           f"{own['detect_video']} ({VIDEO_FRAMES} frames each)")
-    check(own["rgb"]["gather_chw"] > 0 and own["dct420"]["gather_chw"] > 0,
+    check(_chw_gathers(own["rgb"]) > 0 and _chw_gathers(own["dct420"]) > 0,
           f"predict() on the video did not launch the CHW gather: {own}")
     return {k: sum(c[k] for c in own.values()) for k in _no_launches()}
 
@@ -3227,7 +3238,7 @@ def onnx_export_phase(torch):
     own = _no_launches()
     got = _counted(own, lambda: get_sliced_prediction(image, onnx_model, **SLICED_KW)).detections.to_numpy()
     _compare(got, want, "SCRFD exported through export_torch_to_onnx", ".onnx route vs native, on the card")
-    check(own["gather_chw"] == 1, f"the exported graph's run launched {own}")
+    check(_chw_gathers(own) == 1, f"the exported graph's run launched {own}")
     return own
 
 
@@ -3294,7 +3305,7 @@ def multidevice_phase(torch, models, mesh):
     got = _counted(own["mesh"], lambda: get_sliced_prediction(image, model, mesh=mesh, **SLICED_KW))
     _compare(got.detections.to_numpy(), want, "get_sliced_prediction(mesh=create_mesh(1)) float32",
              "mesh vs no mesh, on the card")
-    check(own["mesh"]["gather_chw"] == 1, f"the mesh run launched {own['mesh']}")
+    check(_chw_gathers(own["mesh"]) == 1, f"the mesh run launched {own['mesh']}")
     ms = {"plain": [], "mesh": []}
     for _ in range(4):  # alternating blocks: the host's speed drifts within a call
         for label, kw in (("plain", {}), ("mesh", {"mesh": mesh})):
@@ -3345,7 +3356,7 @@ def multidevice_phase(torch, models, mesh):
     for i, (img, out) in enumerate(zip(images, outs)):
         single = get_sliced_prediction(img, model, **SLICED_KW).detections.to_numpy()
         _compare(out.to_numpy(), single, f"multidevice image {i}", "round-robin vs a single call")
-    check(own["multidevice"]["gather_chw"] == len(images), f"predict_stream_multidevice launched {own['multidevice']}")
+    check(_chw_gathers(own["multidevice"]) == len(images), f"predict_stream_multidevice launched {own['multidevice']}")
     print(f"launches of the multi-device runs alone: {own}")
     return {k: sum(c[k] for c in own.values()) for k in _no_launches()}
 
@@ -3614,7 +3625,7 @@ def golden_finetune_phase(torch, ref, root):
     YoloV11PoseDetectionModel(model_path=cv["final_checkpoint"], scale="n", dtype="float32", device="cuda")
     print(f"2-fold CV: eval points {cv['eval_points']}, chosen {cv['cv_chosen_steps']}, aggregate "
           f"{json.dumps(cv['aggregate'])}; the final checkpoint loads")
-    check(launches["gather_chw"] > 0, "parity_on_split did not launch the CHW gather")
+    check(_chw_gathers(launches) > 0, "parity_on_split did not launch the CHW gather")
     print(f"launches of the four runs (parity_on_split's sliced passes): {launches}")
     return launches
 
@@ -3701,7 +3712,7 @@ def golden_eval_phase(torch, ref, root):
           + f"; images per second over {n} images: official (2 modes) {2 * n / seconds['golden_official_eval']:.2f}, "
           f"dual (4 modes + 4 grid configurations) {8 * n / seconds['golden_dual_eval --tune']:.2f}, sweep "
           f"{n / seconds['golden_conf_sweep']:.2f}")
-    check(launches["gather_chw"] > 0, "the golden evaluation did not launch the CHW gather")
+    check(_chw_gathers(launches) > 0, "the golden evaluation did not launch the CHW gather")
     print(f"launches of the bfloat16 runs: {launches}")
     return launches
 
@@ -3781,7 +3792,7 @@ def sr_golden_phase(torch, ref, root):
         check(drawn.shape[2] == 3 and drawn.shape[0] > 0, f"FaceVisualizer drew {drawn.shape}")
         print(f"FaceVisualizer.draw_detections: {drawn.shape}; {len(saved)} crops saved")
     vis.create_detection_summary({"num_faces": len(preds), "detections": []})
-    check(launches["gather_chw"] > 0, "process_single_image did not launch the CHW gather")
+    check(_chw_gathers(launches) > 0, "process_single_image did not launch the CHW gather")
     return launches
 
 
@@ -4160,7 +4171,7 @@ def main() -> int:
         counts = main_path_phase(torch, models)
         ingest_phase(torch, models)
         batch_phase(torch, models)
-        counts.update(serving_phase(torch, models))
+        counts["gather_chw_batched"] += serving_phase(torch, models)["gather_chw_batched"]
         folder_phase(torch, models)
         f32 = sr_fidelity_phase(torch)
         served, enh_launches = sr_main_path_phase(torch, f32)
@@ -4168,6 +4179,7 @@ def main() -> int:
         pipeline_v1_phase(torch, models, f32, served)
         enh_counts = dict(enh_launches)  # read before a later phase sets the counts to 0
         check(enh_counts["gather_chw"] > 0, "the enhancement main path did not launch the CHW gather")
+        counts["gather_chw"] += enh_counts["gather_chw"]  # the single entry's main path: the window gathers
         print(f"launches on the enhancement main path: {enh_counts} (window gathers of tiled_sr and "
               f"the detections of pipelines v1 and v2; the v2 canvas: {counts['gather_chw@2048x3072']})")
         check(all(os.path.exists(p) for p in (CKPT, NIQE_ASSET, BRISQUE_ASSET)),
@@ -4179,7 +4191,8 @@ def main() -> int:
         onnx_phase(torch, scrfd_pair, models)
         topiq_phase(torch)
         det, official_launches = official_eval_phase(torch, models, served, ev, cli_results)
-        family_counts["evaluation"] = {"gather_chw": official_launches + dual_tuning_phase(torch, det, ev, cli_results)}
+        dual_launches = dual_tuning_phase(torch, det, ev, cli_results)
+        family_counts["evaluation"] = {k: official_launches[k] + dual_launches[k] for k in _no_launches()}
         iqa_phase(ev)
         train_fidelity_phase(torch)
         train_main_path_phase(torch)
@@ -4209,7 +4222,7 @@ def main() -> int:
         upload_phase(torch)
         counts["gather_hwc"] += api_phase(torch)["gather_hwc"]
         for family, c in family_counts.items():
-            check(c["gather_chw"] > 0, f"the {family} main path did not launch the CHW gather")
+            check(_chw_gathers(c) > 0, f"the {family} main path did not launch the CHW gather")
             for name, n in c.items():
                 counts[name] = counts.get(name, 0) + n
         print(f"launches on the evaluation paths (phases 21, 22): {family_counts['evaluation']}; int8 (phase 31): "

@@ -51,10 +51,7 @@ from facedet_tpu_torch.ops.jpeg_dct import (
     decode_dct420_np,
     decode_dct420_to_yuv_f32,
     encode_dct420,
-    pack_sparse_ac,
     pack_sparse_ac_batch,
-    sparse_cap_bucket,
-    sparse_nnz_entries,
     unpack_sparse_ac,
     wire_unpack_dct420s,
 )
@@ -155,8 +152,8 @@ def decode_canvas(image, input_format: str, bucket_h: int, bucket_w: int, dtype:
     * ``yuv420``: (Y, UV) uint8 planes: chroma upsample and BT.601
       conversion on the device (ops/color.py);
     * ``dct420``: (y_dc, y_ac, uv_dc, uv_ac, qy, qc) with the AC planes in
-      wire layout (coefficient-major, ``_dct_wire``), transposed back here
-      next to the IDCT products (ops/jpeg_dct.py);
+      wire layout (coefficient-major, as ``_stage_batch_host`` stages them),
+      transposed back here next to the IDCT products (ops/jpeg_dct.py);
     * ``dct420s``: (y_dc, uv_dc, qy, qc, deltas, vals), the sparse AC wire,
       rebuilt by a cumsum and a scatter into the same wire-layout planes."""
     if input_format == "rgb":
@@ -186,9 +183,9 @@ def decode_canvas(image, input_format: str, bucket_h: int, bucket_w: int, dtype:
 
 
 def _pipeline(detection_model: DetectionModel, plan: dict, image, consts, forward=None) -> Detections:
-    """The fused pipeline on a decoded-on-device input: one image (no batch
-    axis) or a chunk of same-size images (one leading axis). Returns the
-    merged, clipped and compacted detections, still on the device.
+    """The fused pipeline on a decoded-on-device input: a chunk of
+    same-size images (one leading axis). Returns the merged, clipped and
+    compacted detections, still on the device.
     ``forward`` replaces the detector's ``tile_forward_nchw`` over the tile
     batch (the tile-sharded forward of a mesh); the standard pass always
     runs the detector's own. Spans: ``ingest``, ``gather``,
@@ -233,13 +230,14 @@ def _pipeline(detection_model: DetectionModel, plan: dict, image, consts, forwar
     return merged
 
 
-def batch_core(detection_model: DetectionModel, plan: dict, batch, consts) -> Detections:
-    """The batch pipeline over ``n`` same-size images: chunks of ``c`` images
-    with ``c*T`` tiles at most ``_MAX_FLAT_TILES``. Per chunk, ingest, gather
-    and merge carry the image axis, and the detector runs over the flattened
-    [c*T] tile batch and the [c] letterboxed batch. Results do not depend on
-    the chunk size. ``batch`` is the uploaded wire buffer (``dct420s``), the
-    plane tuple, or the RGB canvas batch."""
+def batch_core(detection_model: DetectionModel, plan: dict, batch, consts, forward=None) -> Detections:
+    """The batch pipeline over ``n`` same-size images (a single image is a
+    batch of one): chunks of ``c`` images with ``c*T`` tiles at most
+    ``_MAX_FLAT_TILES``. Per chunk, ingest, gather and merge carry the image
+    axis, and the detector runs over the flattened [c*T] tile batch and the
+    [c] letterboxed batch. Results do not depend on the chunk size.
+    ``batch`` is the uploaded wire buffer (``dct420s``), the plane tuple, or
+    the RGB canvas batch; ``forward`` is ``_pipeline``'s."""
     b = plan["n"]
     if plan["input_format"] == "dct420s" and not isinstance(batch, tuple):
         batch = wire_unpack_dct420s(batch, b, plan["bucket_h"], plan["bucket_w"])
@@ -249,7 +247,7 @@ def batch_core(detection_model: DetectionModel, plan: dict, batch, consts) -> De
     outs = []
     for i in range(0, b, c):
         chunk = tuple(a[i : i + c] for a in batch) if isinstance(batch, tuple) else batch[i : i + c]
-        outs.append(_pipeline(detection_model, plan, chunk, consts))
+        outs.append(_pipeline(detection_model, plan, chunk, consts, forward))
     return outs[0] if len(outs) == 1 else Detections.cat_batches(outs)
 
 
@@ -289,16 +287,6 @@ def _to_yuv_planes(img) -> tuple[np.ndarray, np.ndarray]:
     return rgb_to_yuv420(img)
 
 
-def _pad_yuv_planes(img, bucket_h: int, bucket_w: int):
-    """(Y, UV) planes -> zero/neutral-padded bucketed planes (host numpy)."""
-    y, uv = _to_yuv_planes(img)
-    y_p = np.zeros((bucket_h, bucket_w), np.uint8)
-    y_p[: y.shape[0], : y.shape[1]] = y
-    uv_p = np.full((bucket_h // 2, bucket_w // 2, 2), 128, np.uint8)
-    uv_p[: uv.shape[0], : uv.shape[1]] = uv
-    return y_p, uv_p
-
-
 def _display_image(img) -> np.ndarray:
     """RGB array for result objects (reconstructs YUV/DCT-ingested frames;
     fetches a tensor input)."""
@@ -316,46 +304,6 @@ def _display_image(img) -> np.ndarray:
             arr = (arr.float() * 255.0).round().clamp(0, 255).to(torch.uint8)
         return arr.cpu().numpy()
     return img
-
-
-def _pad_dct_planes(img, bucket_h: int, bucket_w: int):
-    """DctImage -> coefficient planes zero-padded to the bucketed canvas.
-
-    Zero AC + zero DC decodes to mid-gray; black luma padding (parity with
-    the YUV path's zeroed canvas) needs DC = round(-1024 / q_dc) in the
-    padded blocks. Chroma zero-pads to neutral 128 by construction."""
-    if not isinstance(img, DctImage):  # raw RGB/YUV: encode on the fly
-        img = encode_dct420(img)
-    yb_h, yb_w = bucket_h // 8, bucket_w // 8
-    cb_h, cb_w = bucket_h // 16, bucket_w // 16
-    y_dc_pad = np.int16(round(-1024.0 / float(img.qy[0])))
-    y_dc = np.full((yb_h, yb_w), y_dc_pad, np.int16)
-    y_ac = np.zeros((yb_h, yb_w, 64), np.int8)
-    uv_dc = np.zeros((cb_h, cb_w, 2), np.int16)
-    uv_ac = np.zeros((cb_h, cb_w, 2, 64), np.int8)
-    sy, sx = img.y_dc.shape
-    y_dc[:sy, :sx] = img.y_dc
-    y_ac[:sy, :sx] = img.y_ac
-    cy_, cx_ = img.uv_dc.shape[:2]
-    uv_dc[:cy_, :cx_] = img.uv_dc
-    uv_ac[:cy_, :cx_] = img.uv_ac
-    return y_dc, y_ac, uv_dc, uv_ac, img.qy, img.qc
-
-
-def _dct_wire(planes):
-    """Block-major dct420 planes -> wire layout: AC coefficient-major
-    (y_ac [64, Hb, Wb], uv_ac [2, 64, Hb2, Wb2]), the layout the sparse
-    packer scans (each frequency's mostly-zero plane is contiguous); the
-    pipeline transposes back on the device."""
-    y_dc, y_ac, uv_dc, uv_ac, qy, qc = planes
-    return (
-        y_dc,
-        np.moveaxis(y_ac, -1, 0),
-        uv_dc,
-        np.moveaxis(uv_ac, (2, 3), (0, 1)),
-        qy,
-        qc,
-    )
 
 
 def _fill_pad(a: np.ndarray, rows: int, cols: int, value, axes=(0, 1)) -> None:
@@ -402,7 +350,8 @@ def _stage_batch_host(imgs: list, input_format: str, bucket_h: int, bucket_w: in
             # wire once its size is known
             head_alloc = np.empty
         else:
-            # AC planes staged directly in wire layout (_dct_wire)
+            # AC planes staged directly in wire layout: coefficient-major,
+            # each frequency's mostly-zero plane contiguous
             y_ac = alloc((n, 64, yb_h, yb_w), np.int8)
             uv_ac = alloc((n, 2, 64, cb_h, cb_w), np.int8)
             head_alloc = alloc
@@ -456,6 +405,10 @@ def _stage_batch_host(imgs: list, input_format: str, bucket_h: int, bucket_w: in
             _fill_pad(uv_b[i], uv.shape[0], uv.shape[1], 128)
             uv_b[i, : uv.shape[0], : uv.shape[1]] = uv
         return y_b, uv_b
+    if isinstance(imgs[0], (DctImage, tuple)):
+        raise ValueError("input_format='rgb' takes an RGB image, not YUV planes or a DctImage")
+    if n == 1 and alloc is np.empty and imgs[0].shape[:2] == (bucket_h, bucket_w):
+        return imgs[0][None]  # already the canvas: uploaded as it is, no host copy
     batch = alloc((n, bucket_h, bucket_w, imgs[0].shape[2]), imgs[0].dtype)
     for i, im in enumerate(imgs):
         _fill_pad(batch[i], im.shape[0], im.shape[1], 0)
@@ -463,33 +416,13 @@ def _stage_batch_host(imgs: list, input_format: str, bucket_h: int, bucket_w: in
     return batch
 
 
-def _stage_single_host(img, input_format: str, bucket_h: int, bucket_w: int):
-    """One host image -> the padded arrays ``decode_canvas`` takes."""
-    if input_format == "yuv420":
-        return _pad_yuv_planes(img, bucket_h, bucket_w)
-    if input_format == "dct420":
-        return _dct_wire(_pad_dct_planes(img, bucket_h, bucket_w))
-    if input_format == "dct420s":
-        y_dc, y_ac_w, uv_dc, uv_ac_w, qy, qc = _dct_wire(_pad_dct_planes(img, bucket_h, bucket_w))
-        flat = np.concatenate([y_ac_w.ravel(), uv_ac_w.ravel()])
-        nz = np.flatnonzero(flat)  # one scan, shared by sizing + pack
-        cap = sparse_cap_bucket(sparse_nnz_entries(flat, nz=nz), flat.size)
-        deltas, vals = pack_sparse_ac(flat, cap, nz=nz)
-        return y_dc, uv_dc, qy, qc, deltas, vals
-    if input_format != "rgb":
-        raise ValueError(f"unknown input_format {input_format!r}; expected one of {INPUT_FORMATS}")
-    if isinstance(img, (DctImage, tuple)):
-        raise ValueError("input_format='rgb' takes an RGB image, not YUV planes or a DctImage")
-    if img.shape[0] == bucket_h and img.shape[1] == bucket_w:
-        return img
-    padded = np.zeros((bucket_h, bucket_w, img.shape[2]), img.dtype)
-    padded[: img.shape[0], : img.shape[1]] = img
-    return padded
-
-
-def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+def _to_device(staged, device: torch.device):
+    """A pageable upload of ``_stage_batch_host``'s output: one array, or a
+    tuple of planes, to tensors of the same structure on ``device``."""
+    if isinstance(staged, tuple):
+        return tuple(_to_device(a, device) for a in staged)
     # uint16 deltas travel as their int16 bits (unpack_sparse_ac widens them)
-    return torch.from_numpy(a.view(np.int16) if a.dtype == np.uint16 else a).to(device)
+    return torch.from_numpy(staged.view(np.int16) if staged.dtype == np.uint16 else staged).to(device)
 
 
 # --- plans, constants, fetches -------------------------------------------------
@@ -684,19 +617,20 @@ def _sharded_forward(detection_model: DetectionModel, mesh):
 
 
 def _dispatch_sliced(img, detection_model: DetectionModel, opts: dict):
-    """Enqueue the sliced pipeline for one image and start the copy of its
-    result to the host, in spans of the request open on this thread:
-    ``plan``, ``stage`` (the host padding, or the pad on the device of a
-    tensor input), ``upload`` and ``_pipeline``'s. Returns (the pending
-    fetch, the plan, the ``plan`` span): callers keep several images in
-    flight (``predict_stream``) before they wait on a result. With
-    ``opts["mesh"]`` every rank of the mesh must call it with the same image
-    (SPMD); each gets the whole result."""
+    """Enqueue the sliced pipeline for one image, run as a batch of one
+    (``batch_core``), and start the copy of its row to the host, in spans of
+    the request open on this thread: ``plan``, ``stage``
+    (``_stage_batch_host``, or the pad on the device of a tensor input),
+    ``upload`` and ``_pipeline``'s. Returns (the pending fetch, the plan, the
+    ``plan`` span): callers keep several images in flight
+    (``predict_stream``) before they wait on a result. With ``opts["mesh"]``
+    every rank of the mesh must call it with the same image (SPMD); each
+    gets the whole result."""
     mesh = opts.get("mesh")
     forward = None if mesh is None else _sharded_forward(detection_model, mesh)
     h, w = _image_hw(img)
     with SPANS.span("plan") as planned:
-        plan = _plan(h, w, None, detection_model, opts)
+        plan = _plan(h, w, 1, detection_model, opts)
 
     device = detection_model.device
     fmt = plan["input_format"]
@@ -708,15 +642,14 @@ def _dispatch_sliced(img, detection_model: DetectionModel, opts: dict):
                 # already on a device: pad there, no trip through the host
                 dev = torch.nn.functional.pad(
                     img.to(device), (0, 0, 0, plan["bucket_w"] - w, 0, plan["bucket_h"] - h)
-                )
+                )[None]
         else:
             with SPANS.span("stage"):
-                staged = _stage_single_host(img, fmt, plan["bucket_h"], plan["bucket_w"])
+                staged = _stage_batch_host([img], fmt, plan["bucket_h"], plan["bucket_w"])
             with SPANS.span("upload"):
-                dev = (tuple(_to_device(a, device) for a in staged) if isinstance(staged, tuple)
-                       else _to_device(staged, device))
+                dev = _to_device(staged, device)
         consts = _resident_grid_consts(detection_model, plan, device)
-        fetch = _Fetch(_pipeline(detection_model, plan, dev, consts, forward))
+        fetch = _Fetch(batch_core(detection_model, plan, dev, consts, forward).map(lambda x: x[0]))
     return fetch, plan, planned
 
 
@@ -901,12 +834,7 @@ def _dispatch_staged_batch(plan: dict, staged, detection_model: DetectionModel,
     device = detection_model.device
     with torch.inference_mode(), _exact_float32(plan["canvas_dtype"] == torch.float32), _on_device(device):
         with SPANS.span("upload", request):
-            if slot is not None:
-                batch_dev = slot.upload(staged)
-            elif isinstance(staged, tuple):
-                batch_dev = tuple(_to_device(a, device) for a in staged)
-            else:
-                batch_dev = _to_device(staged, device)
+            batch_dev = _to_device(staged, device) if slot is None else slot.upload(staged)
         with SPANS.span("enqueue", request):
             consts = _resident_grid_consts(detection_model, plan, device)
             return _Fetch(batch_core(detection_model, plan, batch_dev, consts))

@@ -203,7 +203,9 @@ def test_stage_sparse_matches_dense_planes():
 def test_padding_is_black_luma_neutral_chroma():
     """tests/test_jpeg_dct.py:67-78."""
     d = tdct.encode_dct420(natural_image(40, 56, seed=5), quality=90)
-    planes = tpredict._pad_dct_planes(d, 128, 128)
+    y_dc, y_ac, uv_dc, uv_ac, qy, qc = (a[0] for a in tpredict._stage_batch_host([d], "dct420", 128, 128))
+    # the AC planes leave the staging coefficient-major: back to block-major
+    planes = (y_dc, np.moveaxis(y_ac, 0, -1), uv_dc, np.moveaxis(uv_ac, (0, 1), (2, 3)), qy, qc)
     for a, b in zip(planes, jpredict._pad_dct_planes(jdct.encode_dct420(natural_image(40, 56, seed=5)), 128, 128)):
         np.testing.assert_array_equal(a, b)
     y, uv = tdct.decode_dct420_np(tdct.DctImage(*planes[:4], d.qy, d.qc, (128, 128)))

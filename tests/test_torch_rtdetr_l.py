@@ -1,8 +1,8 @@
 """The published RT-DETR-l (facedet_tpu_torch/models/rtdetr_l.py, the
 ``rtdetr-l-hgnetv2`` variants of engine/rtdetr_wrapper.py) against the plain
-float32 reference of tests/plain_rtdetr_l.py, on the CPU, on the narrow
-``rtdetr-l-hgnetv2-tiny`` (the published layout at a few channels) with
-weights drawn by the benchmark's family (port_bench/families/rtdetr.py).
+float32 reference of port_bench/reference/rtdetr_l.py, on the CPU, on the
+narrow ``rtdetr-l-hgnetv2-tiny`` (the published layout at a few channels)
+with weights drawn by the benchmark's family (port_bench/families/rtdetr.py).
 
 Tolerances, each with its reason:
 - float32: ``top_idx`` equal; logits within 2e-4 and boxes within 5e-6 (in
@@ -50,11 +50,9 @@ from facedet_tpu_torch.utils.profiling import SPANS
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-import plain_rtdetr_l as plain  # noqa: E402
 from port_bench import harness, inputs, weights  # noqa: E402
-from port_bench.reference import rtdetr_l as bench_plain  # noqa: E402
+from port_bench.reference import rtdetr_l as plain  # noqa: E402
 from port_bench.reference import sahi  # noqa: E402
 from port_bench.reference.expected import exact_float32  # noqa: E402
 
@@ -173,19 +171,7 @@ def test_bfloat16_with_the_references_selection(tiny_path, tiny_params):
     assert 1e-3 < logit_gap < 0.6 and box_gap < 0.005
 
 
-def test_the_two_copies_of_the_reference_agree_bitwise(tiny_params):
-    x = _photos(1, 256)
-    with torch.inference_mode():
-        a = plain.RtDetrL(tiny_params, num_heads=4, num_queries=30)(x)
-        b = bench_plain.RtDetrL(tiny_params, num_heads=4, num_queries=30)(x)
-    assert all(torch.equal(a[k], b[k]) for k in a)
-    assert plain.state_shapes() == bench_plain.state_shapes()
-    ta = plain.tile_detections(plain.RtDetrL(tiny_params, 4, 30), x, 0.3)
-    tb = bench_plain.tile_detections(bench_plain.RtDetrL(tiny_params, 4, 30), x, 0.3)
-    assert all(np.array_equal(p[k], q[k]) for p, q in zip(ta, tb) for k in p)
-
-
-@pytest.mark.parametrize("side", ["program", "plain", "bench_plain"])
+@pytest.mark.parametrize("side", ["program", "plain"])
 def test_the_deformable_value_is_the_projected_tokens(tiny_path, tiny_params, side):
     """As in Ultralytics' ``RTDETRDecoder.forward``, every decoder layer's
     ``value_proj`` reads the ``input_proj`` tokens themselves: other
@@ -213,7 +199,7 @@ def test_the_deformable_value_is_the_projected_tokens(tiny_path, tiny_params, si
         if moved:
             params["model.28.enc_output.0.weight"] = -1.5 * params["model.28.enc_output.0.weight"]
             params["model.28.enc_output.1.bias"] = params["model.28.enc_output.1.bias"] + 0.3
-        net = (plain if side == "plain" else bench_plain).RtDetrL(params, num_heads=4, num_queries=30)
+        net = plain.RtDetrL(params, num_heads=4, num_queries=30)
         watched = {id(params[k]) for k in names}
 
         def linear(t, w, b=None):
@@ -406,7 +392,7 @@ def test_replay_is_bitwise_the_eager_chain(cuda, batch, monkeypatch):
 def test_bfloat16_on_the_card_against_the_float32_reference(cuda, batch):
     cell = harness.cell("rtdetr-l.single_rgb")
     fam = harness.family("rtdetr")
-    net = bench_plain.RtDetrL(weights.tensors(weights.arrays(cell.config["detector"]["weights"], ROOT, fam.draw), cuda))
+    net = plain.RtDetrL(weights.tensors(weights.arrays(cell.config["detector"]["weights"], ROOT, fam.draw), cuda))
     x = _photos(batch, 640, seed=7).to(cuda)
     with torch.inference_mode(), exact_float32():
         want = net(x)

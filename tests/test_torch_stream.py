@@ -34,7 +34,7 @@ from facedet_tpu_torch import (
 )
 from facedet_tpu_torch.engine import predict as tpredict
 from facedet_tpu_torch.ops.color import rgb_to_yuv420
-from facedet_tpu_torch.ops.jpeg_dct import DctImage, encode_dct420
+from facedet_tpu_torch.ops.jpeg_dct import DctImage, encode_dct420, wire_unpack_dct420s
 from facedet_tpu_torch.utils.synth import synthetic_faces
 
 torch.set_num_threads(1)
@@ -120,15 +120,32 @@ def test_sparse_wire_is_lossless_against_dense_planes(models, images):
     """``dct420s`` rebuilds the planes ``dct420`` uploads: equal canvases,
     bit for bit, so equal detections."""
     d = encode_dct420(images[1])
-    canvases = {}
-    for fmt in ("dct420", "dct420s"):
-        staged = tpredict._stage_single_host(d, fmt, 256, 256)
-        dev = tuple(tpredict._to_device(a, torch.device("cpu")) for a in staged)
-        canvases[fmt] = tpredict.decode_canvas(dev, fmt, 256, 256, torch.float32)
-    assert canvases["dct420"].shape == (3, 256, 256)
+    cpu = torch.device("cpu")
+    dense = tpredict._to_device(tpredict._stage_batch_host([d], "dct420", 256, 256), cpu)
+    wire = tpredict._to_device(tpredict._stage_batch_host([d], "dct420s", 256, 256), cpu)
+    planes = {"dct420": dense, "dct420s": wire_unpack_dct420s(wire, 1, 256, 256)}
+    canvases = {fmt: tpredict.decode_canvas(p, fmt, 256, 256, torch.float32) for fmt, p in planes.items()}
+    assert canvases["dct420"].shape == (1, 3, 256, 256)
     assert torch.equal(canvases["dct420"], canvases["dct420s"])
     # the padding decodes to black
-    assert float(canvases["dct420"][:, 248:, :].max()) < 0.03
+    assert float(canvases["dct420"][..., 248:, :].max()) < 0.03
+
+
+@pytest.mark.parametrize("fmt", ["rgb", "yuv420", "dct420", "dct420s", "tensor"])
+def test_single_image_is_the_batch_of_one(models, images, singles, fmt):
+    """A single call answers what a batch of one answers, bit for bit; a
+    tensor input (padded on its device) answers what its numpy twin does."""
+    _, model = models
+    src_fmt = "rgb" if fmt == "tensor" else fmt
+    src = TO_FORMAT[src_fmt][0](images[0])
+    if fmt == "tensor":
+        got = get_sliced_prediction(torch.from_numpy(images[0]), model, **SLICED).detections
+    else:
+        got = singles(fmt, 0).detections
+    want = get_sliced_prediction_batch([src], model, raw=True, input_format=src_fmt, **SLICED)
+    assert int(want.valid.sum()) > 0
+    for field in ("boxes", "scores", "classes", "kpts", "valid"):
+        assert np.array_equal(getattr(got, field).numpy(), getattr(want, field)[0].numpy()), field
 
 
 def test_rgb_image_is_encoded_on_the_fly_for_dct_formats(models, images, singles):
